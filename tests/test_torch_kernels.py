@@ -1,0 +1,218 @@
+"""The hand-written CUDA scan kernels (pysdr_tpu_torch/csrc/scan.cu)
+against their plain torch twins, and the twins against a serial loop.
+
+Imports no jax, so it also runs on a card host without the JAX package:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+The `cuda`-marked tests skip on a host without a CUDA device (the kernels
+have no CPU mode); the rest run everywhere.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pysdr_tpu.config import PipelineConfig, ReceiverConfig
+from pysdr_tpu.tables import Mode
+from pysdr_tpu_torch import kernels
+from pysdr_tpu_torch.kernels import scan as kscan
+from pysdr_tpu_torch.models.receiver import ReceiverBank
+from pysdr_tpu_torch.ops import demod, scanops
+
+torch.set_num_threads(1)
+
+# the main path's scan shapes at bank4: pass A, pass B, the AGC windows
+MAIN_SHAPES = [(4, 24576, 4), (4, 24576, 2), (4, 384, 1)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def serial_linrec(a, b, y_prev):
+    y = np.empty_like(a, dtype=np.float64)
+    acc = y_prev.astype(np.float64)
+    for i in range(a.shape[1]):
+        acc = a[:, i] * acc + b[:, i]
+        y[:, i] = acc
+    return y
+
+
+def serial_latch(s, r, g_prev):
+    out = np.empty(s.shape, np.float32)
+    g = g_prev > 0.5
+    for i in range(s.shape[1]):
+        g = np.where(s[:, i], True, np.where(r[:, i], False, g))
+        out[:, i] = g
+    return out
+
+
+def scan_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.9, 1.0, shape).astype(np.float32)
+    b = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    yp = rng.uniform(0.0, 1.0, (shape[0], shape[2])).astype(np.float32)
+    return a, b, yp
+
+
+def latch_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    s = rng.random(shape) < 0.01
+    r = rng.random(shape) < 0.01
+    gp = (rng.random(shape[0]) < 0.5).astype(np.float32)
+    return s, r, gp
+
+
+@pytest.mark.parametrize("shape", [(2, 3000, 3), (1, 1, 1), (3, 37, 2)])
+def test_linrec_ref_matches_serial_loop(shape):
+    a, b, yp = scan_inputs(shape, 1)
+    y, last = scanops.linrec_ref(torch.from_numpy(a), torch.from_numpy(b),
+                                 torch.from_numpy(yp))
+    ref = serial_linrec(a, b, yp)
+    assert np.abs(y.numpy() - ref).max() / np.abs(ref).max() <= 1e-5
+    np.testing.assert_array_equal(last.numpy(), y.numpy()[:, -1])
+
+
+@pytest.mark.parametrize("shape", [(4, 3000), (1, 1), (2, 33)])
+def test_sr_latch_ref_matches_serial_loop(shape):
+    s, r, gp = latch_inputs(shape, 2)
+    gate, last = scanops.sr_latch_ref(torch.from_numpy(s),
+                                      torch.from_numpy(r),
+                                      torch.from_numpy(gp))
+    ref = serial_latch(s, r, gp)
+    np.testing.assert_array_equal(gate.numpy(), ref)
+    np.testing.assert_array_equal(last.numpy(), ref[:, -1])
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    """A tensor off the CPU goes to the kernel wrapper, which raises for
+    anything but a CUDA tensor: no silent fallback to the plain twin."""
+    a = torch.empty((1, 8, 1), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scanops.linrec(a, a, torch.zeros((1, 1), device="meta"))
+    s = torch.empty((1, 8), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scanops.sr_latch(s, s, torch.zeros(1, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kscan.linrec(torch.zeros(1, 8, 1), torch.zeros(1, 8, 1),
+                     torch.zeros(1, 1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kscan.sr_latch(torch.zeros(1, 8, dtype=torch.bool),
+                       torch.zeros(1, 8, dtype=torch.bool), torch.zeros(1))
+
+
+def test_threads_per_block():
+    assert kscan._threads(1) == 32
+    assert kscan._threads(384) == 32
+    assert kscan._threads(24576) == 1024
+    assert all(kscan._threads(n) <= 1024 for n in (10 ** 6, 2 ** 24))
+
+
+def test_one_pole_scalar_alpha_equals_per_column_alpha():
+    """A python-scalar alpha (kept off the device) gives bit for bit what
+    the same alpha as a per-column tensor gives."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 500, 3)).astype(np.float32))
+    yp = torch.from_numpy(rng.standard_normal((2, 3)).astype(np.float32))
+    alpha = 0.0623
+    y_s, last_s = scanops.one_pole(x, alpha, yp)
+    y_t, last_t = scanops.one_pole(
+        x, torch.full((3,), alpha, dtype=torch.float32), yp)
+    assert torch.equal(y_s, y_t) and torch.equal(last_s, last_t)
+
+
+def test_demod_scan_constants_are_made_once_per_design_and_device():
+    design = demod.DemodDesign(fs_out=48e3)
+    alphas_a, alpha_click, a_b = demod.scan_constants(design,
+                                                      torch.device("cpu"))
+    assert demod.scan_constants(demod.DemodDesign(fs_out=48e3),
+                                torch.device("cpu"))[0] is alphas_a
+    assert alphas_a.shape == (4,) and a_b.shape == (2,)
+    assert isinstance(alpha_click, float)
+    np.testing.assert_allclose(a_b.numpy(), [1 - alpha_click, 0.9985],
+                               rtol=1e-7)
+
+
+# ---- on the card ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MAIN_SHAPES + [(2, 7, 3), (1, 1, 1),
+                                                 (3, 100003, 1)])
+def test_linrec_kernel_matches_plain(cuda, shape):
+    a, b, yp = (torch.from_numpy(v) for v in scan_inputs(shape, 3))
+    y_ref, l_ref = scanops.linrec_ref(a, b, yp)
+    before = kscan.linrec.launches
+    y, last = kscan.linrec(a.to(cuda), b.to(cuda), yp.to(cuda))
+    torch.cuda.synchronize()
+    assert kscan.linrec.launches == before + 1
+    scale = y_ref.abs().max().item()
+    # f32 reassociation over up to 1e5 steps
+    assert (y.cpu() - y_ref).abs().max().item() / scale <= 1e-4
+    assert (last.cpu() - l_ref).abs().max().item() / scale <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 24576), (3, 5), (1, 1),
+                                   (2, 100003)])
+def test_sr_latch_kernel_matches_plain(cuda, shape):
+    s, r, gp = (torch.from_numpy(v) for v in latch_inputs(shape, 4))
+    g_ref, l_ref = scanops.sr_latch_ref(s, r, gp)
+    g, last = kscan.sr_latch(s.to(cuda), r.to(cuda), gp.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(g.cpu(), g_ref) and torch.equal(last.cpu(), l_ref)
+
+
+@pytest.mark.cuda
+def test_dispatch_takes_the_kernel_on_cuda(cuda):
+    kernels.reset_launch_counts()
+    a = torch.full((64, 2), 0.5, device=cuda)
+    scanops.one_pole(a, 0.1, torch.zeros(2, device=cuda))
+    scanops.sr_latch(a[:, 0] > 0, a[:, 0] < 0, 1.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"linrec": 1, "sr_latch": 1}
+
+
+@pytest.mark.cuda
+def test_bank_step_does_not_wait_on_the_card(cuda):
+    """A 4-RX bank step launches every scan kernel and makes no blocking
+    copy or stream sync: sync debug mode 'error' raises on any."""
+    cfg = PipelineConfig(
+        fs_in=512e3, fs_out=48e3, out_block=3072, foffset_hz=60e3,
+        receivers=tuple(ReceiverConfig(fc_hz=f, mode=m) for f, m in (
+            (10e6, Mode.AM), (10.03e6, Mode.NFM), (9.97e6, Mode.USB),
+            (10.06e6, Mode.CW))))
+    bank = ReceiverBank(cfg, audio_wire="i16", device=cuda)
+    rng = np.random.default_rng(5)
+    n = bank.design.in_block
+    xbs = [bank.to_device_block((rng.standard_normal(n)
+                                 + 1j * rng.standard_normal(n)) * 0.1)
+           for _ in range(3)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [bank.step_device(xb) for xb in xbs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # per step: linrec for pass A, pass B and the AGC; sr_latch once
+    assert kernels.launch_counts() == {"linrec": 9, "sr_latch": 3}
+    for out in outs:
+        assert out.dtype == torch.int16
+        assert out.shape == (bank.n_rx * cfg.out_block * 2,)
+        assert out.abs().max().item() > 0
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros((2, 8, 3), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kscan.linrec(a.transpose(0, 1).contiguous().transpose(0, 1), a,
+                     torch.zeros((2, 3), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        kscan.linrec(a.double(), a, torch.zeros((2, 3), device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        kscan.linrec(a, a, torch.zeros((2, 2), device=cuda))
