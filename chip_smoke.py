@@ -5,23 +5,34 @@
 
 Phases, each of which must pass (exit 1 on the first failure):
   1. device: a CUDA device is present; print its name and power limit.
-  2. build: nvcc builds the hand-written kernels (csrc/scan.cu, sm_90a).
+  2. build: nvcc builds the hand-written kernels (csrc/*.cu, sm_90a).
   3. kernels: each kernel against its plain torch twin on the card at the
-     main path's shapes (linrec <= 1e-4 relative, sr_latch exact), with
+     main paths' shapes (linrec <= 1e-4 relative, sr_latch exact,
+     pfb_branch <= 1e-5 relative on the i8 and f32 wires), with
      CUDA-event times of both (median of 20 runs).
-  4. main path: `python -m pysdr_tpu_torch`'s entry point at the full
+  4. bank4 path: `python -m pysdr_tpu_torch`'s entry point at the full
      width of the 4-RX bank (8 MHz, AM/NFM/USB/CW, 24576-sample audio
-     blocks) from the synth source into wavs; every kernel launched, every
-     RX's tone >= 40 dB over the spectral floor.
+     blocks) from the synth source into wavs; its kernels (the scans)
+     launched, every RX's tone >= 40 dB over the spectral floor.
   5. replay: tests/fixtures/am_tones.dat reproduces its pinned outcome.
-  6. CUDA vs CPU: the same bank on the card and on the CPU over identical
-     blocks, per-RX audio SNR >= 60 dB; the card's step time per block,
-     each step run under torch.cuda.set_sync_debug_mode("error") (it must
-     not wait on the card), then torch.profiler's kernel time per step
-     against the host's wall time.
+  6. bank4 CUDA vs CPU: the same bank on the card and on the CPU over
+     identical blocks, per-RX audio SNR >= 60 dB; the card's step time
+     per block, each step run under torch.cuda.set_sync_debug_mode
+     ("error") (it must not wait on the card), then torch.profiler's
+     kernel time per step against the host's wall time.
+  7. chan64 path: the entry point with the 64-channel channelizer bank
+     (12.288 MHz in 64 x 192 kHz channels, 12288-sample audio blocks, i8
+     RF and mu-law i8 audio wires, squelch 10 dB, PSD + PNG export) from
+     the synth source; every kernel launched; the channels that carry a
+     station show its 300 + 50*i Hz tone >= 40 dB over the floor, an idle
+     channel is squelched silent, RF.png and AF0.png parse; then the web
+     viewer's /frame.json over a 3-block run shows 64 channels.
+  8. chan64 CUDA vs CPU: as 6, for the channelizer bank (>= 60 dB on the
+     channels that carry a station).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors and times. Imports no JAX.
+the kernels with their launches (from the chan64 run, the path that runs
+all of them), errors and times (at the chan64 shapes). Imports no JAX.
 """
 
 from __future__ import annotations
@@ -39,8 +50,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BANK4 = ["--fs", "8", "--block", "24576",
          "--fc", "100.0", "100.5", "101.0", "101.5",
          "--modes", "AM", "NFM", "USB", "CW"]
-KERNEL_SHAPES = {"linrec": [(4, 24576, 4), (4, 24576, 2), (4, 384, 1)],
-                 "sr_latch": [(4, 24576)]}
+CHAN64 = ["--channelize", "64", "--fs", "12.288", "--fc", "100.0",
+          "--block", "12288", "--wire", "i8", "--audio-wire", "i8",
+          "--squelch", "10"]
+# the first shape of each kernel is the chan64 path's, reported in the
+# kernels line; the rest are bank4's (and pfb_branch on the f32 wire)
+KERNEL_SHAPES = {"linrec": [(64, 12288, 4), (64, 12288, 2), (64, 192, 1),
+                            (4, 24576, 4), (4, 24576, 2), (4, 384, 1)],
+                 "sr_latch": [(64, 12288), (4, 24576)],
+                 "pfb_branch": [(49152, 64, 12, "i8"),
+                                (49152, 64, 12, "f32")]}
+BANK4_KERNELS = ("linrec", "sr_latch")
 
 
 class SmokeFailure(Exception):
@@ -133,6 +153,40 @@ def kernel_phase(device):
               f"  plain {plain:.4f} ms", flush=True)
         check(err == 0.0, f"sr_latch {shape} differs from its plain twin")
         out.setdefault("sr_latch", []).append((shape, err, ms, plain))
+    from pysdr_tpu_torch.kernels import pfb
+    from pysdr_tpu_torch.ops import channelizer, cplx
+    for m, nch, k, wire in KERNEL_SHAPES["pfb_branch"]:
+        design = channelizer.ChannelizerDesign(fs_in=12.288e6,
+                                               n_channels=nch,
+                                               taps_per_branch=k)
+        taps = torch.from_numpy(channelizer.pack_branch_weights(
+            design.prototype(), nch)).to(device)
+        x = rng.uniform(-1.0, 1.0, (m * nch, 2)).astype(np.float32)
+        xw = torch.from_numpy(cplx.quantize_host(x, wire)).to(device)
+        hist = torch.from_numpy(
+            (rng.standard_normal((k - 1) * nch) + 1j
+             * rng.standard_normal((k - 1) * nch)).astype(np.complex64)
+        ).to(device)
+        xc = torch.view_as_complex(cplx.dequantize(xw).contiguous())
+        v, nh = pfb.pfb_branch(xw, hist, taps)
+        v_ref, nh_ref = channelizer.branch_filter_ref(xc, hist, taps)
+        torch.cuda.synchronize()
+        err = (v - v_ref).abs().max().item()
+        rel = err / v_ref.abs().max().item()
+        ms = cuda_ms(lambda: pfb.pfb_branch(xw, hist, taps))
+        # the twin with the dequantize the kernel does in its load
+        plain = cuda_ms(lambda: channelizer.branch_filter_ref(
+            torch.view_as_complex(cplx.dequantize(xw).contiguous()), hist,
+            taps))
+        shape = (m, nch, k)
+        print(f"pfb_branch {shape} {wire}: max_abs_err {err:.3e} rel "
+              f"{rel:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms",
+              flush=True)
+        # fused multiply-adds against separate ones, 12 terms
+        check(rel <= 1e-5, f"pfb_branch {shape} {wire} rel err {rel:.3e}")
+        check(torch.equal(nh, nh_ref), f"pfb_branch {shape} {wire}: new "
+              "history differs from its plain twin")
+        out.setdefault("pfb_branch", []).append((shape, err, ms, plain))
     return out
 
 
@@ -152,8 +206,9 @@ def main_path_phase(tmp):
     check(rc == 0 and a is not None, f"main path exited {rc}")
     print(f"launches: {launches}", flush=True)
     print(f"stage_report ms/block: {a.ex.stage_report()}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    for name in BANK4_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "bank4 path")
     bank = a.bank
     tensors = [*bank.buffers(), bank.state.hist, bank.state.ch.nco_phase,
                bank.state.ch.demod.agc_env, bank.params.nco_k]
@@ -205,49 +260,117 @@ def cuda_vs_cpu_phase():
     cpu = ReceiverBank(cfg, device="cpu")
     n = gpu.design.in_block
     blocks = [np.asarray(src.read_data(n), np.complex64) for _ in range(8)]
-    step_ms = []
-    for i, x in enumerate(blocks):
-        xb = gpu.to_device_block(x)
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        # the step must not wait on the card: any blocking copy or
-        # stream sync inside it raises here
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = gpu.step_device(xb)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        b.record()
-        b.synchronize()
-        step_ms.append(a.elapsed_time(b))
-        if i < 3:
-            ag, ac = gpu.audio_from_wire(out), cpu.step(x)
-            for r in range(gpu.n_rx):
-                err = np.mean(np.abs(ag[r] - ac[r]) ** 2)
-                snr = -10 * np.log10(max(
-                    err / max(np.mean(np.abs(ac[r]) ** 2), 1e-30), 1e-30))
-                print(f"block {i} rx{r}: cuda vs cpu audio SNR "
-                      f"{snr:.1f} dB", flush=True)
-                # cuFFT/cuBLAS/scan summation order differs from the
-                # CPU's, and AGC gain and the discriminator amplify it
-                check(snr >= 60.0, f"block {i} rx{r}: {snr:.1f} dB < 60")
+    xbs = [gpu.to_device_block(x) for x in blocks]
+    outs, step_ms = timed_steps(gpu, xbs)
+    for i, x in enumerate(blocks[:3]):
+        ag, ac = gpu.audio_from_wire(outs[i]), cpu.step(x)
+        for r in range(gpu.n_rx):
+            err = np.mean(np.abs(ag[r] - ac[r]) ** 2)
+            snr = -10 * np.log10(max(
+                err / max(np.mean(np.abs(ac[r]) ** 2), 1e-30), 1e-30))
+            print(f"block {i} rx{r}: cuda vs cpu audio SNR "
+                  f"{snr:.1f} dB", flush=True)
+            # cuFFT/cuBLAS/scan summation order differs from the
+            # CPU's, and AGC gain and the discriminator amplify it
+            check(snr >= 60.0, f"block {i} rx{r}: {snr:.1f} dB < 60")
     med = statistics.median(step_ms[2:])
     print(f"bank4 step ms per block (CUDA events): "
           f"{[round(t, 3) for t in step_ms]}; median of blocks 3-8 "
           f"{med:.3f} ms = {n / med / 1e3:.1f} Msamp/s device-only",
           flush=True)
-
     # where the step's time goes: kernel time against host wall time
-    xbs = [gpu.to_device_block(x) for x in blocks[2:]]
+    profile_steps(gpu, xbs[2:])
+    return med
+
+
+def png_size(path):
+    """(width, height) of a PNG file; fails if it does not parse."""
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR",
+          f"{path} is not a PNG")
+    return (int.from_bytes(data[16:20], "big"),
+            int.from_bytes(data[20:24], "big"))
+
+
+def chan64_phase(tmp):
+    import numpy as np
+    import torch
+
+    from pysdr_tpu_torch import app, kernels
+
+    prefix = os.path.join(tmp, "chan64")
+    png = os.path.join(tmp, "png")
+    argv = ["--device", "cuda", *CHAN64, "--blocks", "8", "--wav", prefix,
+            "--psd", "--psd-every", "2", "--png-dir", png, "--profile"]
+    print("argv: " + " ".join(argv), flush=True)
+    kernels.reset_launch_counts()
+    rc, a = app.run_cli(argv)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check(rc == 0 and a is not None, f"chan64 path exited {rc}")
+    print(f"launches: {launches}", flush=True)
+    print(f"stage_report ms/block: {a.ex.stage_report()}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never launched on the chan64 path")
+    bank = a.bank
+    tensors = [*bank.buffers(), bank.state.chan_hist, bank.state.rs_hist,
+               bank.state.demod.agc_env, bank.params.nco_k]
+    check(all(t.device.type == "cuda" for t in tensors),
+          "chan64 bank buffers/state not on cuda")
+    # the synth puts an AM station with a 300 + 50*i Hz tone on every
+    # 4th channel center
+    for i in (0, 4, 8, 12, 60):
+        pk, db = wav_peak(f"{prefix}_rx{i}.wav")
+        want = 300.0 + 50.0 * i
+        print(f"ch{i}: peak {pk:.2f} Hz (want {want}), {db:.1f} dB over "
+              "floor", flush=True)
+        check(abs(pk - want) <= 5.0 and db >= 40.0,
+              f"ch{i}: peak {pk} Hz / {db:.1f} dB")
+    for i in (1, 2):
+        with wave.open(f"{prefix}_rx{i}.wav") as w:
+            d = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        tail = np.abs(d[len(d) // 2:].astype(np.int32)).max()
+        print(f"ch{i} (idle, squelch 10 dB): max |sample| over the last "
+              f"half {tail}", flush=True)
+        check(tail == 0, f"idle ch{i} is not squelched: {tail}")
+    for tag in ("RF", "AF0"):
+        w, h = png_size(os.path.join(png, f"{tag}.png"))
+        print(f"{tag}.png {w}x{h}", flush=True)
+        check(w >= 256 and h >= 1, f"{tag}.png is {w}x{h}")
+
+    import json as _json
+    import urllib.request
+    args = app.build_parser().parse_args(
+        ["--device", "cuda", *CHAN64, "--web", "0", "--psd-every", "1"])
+    web_app = app.App(args)
+    web_app.start_services()
+    try:
+        web_app.ex.run(n_blocks=3)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{web_app.web.port}/frame.json",
+                timeout=30) as r:
+            fr = _json.loads(r.read())
+    finally:
+        web_app.stop_services()
+    print(f"/frame.json: ok {fr.get('ok')} n_rx {fr.get('n_rx')} rf rows "
+          f"{fr.get('rf', {}).get('rows')}", flush=True)
+    check(fr.get("ok") and fr.get("n_rx") == 64 and len(fr["rx"]) == 64,
+          f"/frame.json: ok {fr.get('ok')} n_rx {fr.get('n_rx')}")
+    return launches
+
+
+def profile_steps(bank, xbs):
+    """torch.profiler over bank.step_device on each block: kernels per
+    step, device busy ms per step, host wall ms, device idle share."""
+    import torch
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for xb in xbs:
-            gpu.step_device(xb)
+            bank.step_device(xb)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / len(xbs)
     ka = prof.key_averages()
@@ -257,10 +380,82 @@ def cuda_vs_cpu_phase():
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / len(xbs) / 1e3
     n_kern = sum(e.count for e in kern) / len(xbs)
+    # the hand-written kernels' own device time, without the wrapper's
+    # host cost that phase 3's events include
+    for e in kern:
+        name = next((k for k in ("pfb_branch", "linrec", "sr_latch")
+                     if f"{k}_kernel" in e.key), None)
+        if name:
+            print(f"  {name} kernel: {e.count} launches, device "
+                  f"{e.self_device_time_total / e.count:.3f} us each",
+                  flush=True)
     print(f"profiled step ({len(xbs)} steps): {n_kern:.0f} kernels, "
           f"device busy {busy_ms:.3f} ms, host wall {wall * 1e3:.3f} ms, "
           f"device idle share {max(0.0, 1 - busy_ms / 1e3 / wall):.3f}",
           flush=True)
+
+
+def timed_steps(bank, xbs):
+    """CUDA-event time of bank.step_device per block, each step under
+    sync debug mode "error" (any blocking copy or stream sync inside it
+    raises). Returns (outputs, ms per step)."""
+    import torch
+    outs, step_ms = [], []
+    for xb in xbs:
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(bank.step_device(xb))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    return outs, step_ms
+
+
+def chan64_cuda_vs_cpu_phase():
+    import numpy as np
+    import torch
+
+    from pysdr_tpu_torch import app
+    from pysdr_tpu_torch.models.channelizer_bank import ChannelizerBank
+    from pysdr_tpu_torch.ops import cplx
+
+    args = app.build_parser().parse_args(
+        ["--device", "cuda", *CHAN64, "--audio-wire", "f32"])
+    gpu, src, cfg = app.build_channelizer(args)
+    cpu = ChannelizerBank(cfg, device="cpu")
+    n = gpu.design.in_block
+    wires = [cplx.quantize_host(
+        np.asarray(src.read_data(n), np.complex64).view(np.float32)
+        .reshape(-1, 2), "i8") for _ in range(4)]
+    xbs = [torch.from_numpy(w).to("cuda") for w in wires]
+    # 8 timed steps over the 4 blocks; the first 3 also against the CPU
+    outs, step_ms = timed_steps(gpu, xbs + xbs)
+    for i in range(3):
+        ag = gpu.audio_from_wire(outs[i])
+        ac = cpu.audio_from_wire(cpu.step_device(torch.from_numpy(wires[i])))
+        snrs = []
+        for c in range(0, 64, 4):
+            err = np.mean(np.abs(ag[c] - ac[c]) ** 2)
+            snrs.append(-10 * np.log10(max(
+                err / max(np.mean(np.abs(ac[c]) ** 2), 1e-30), 1e-30)))
+        print(f"block {i}: cuda vs cpu audio SNR on the 16 station "
+              f"channels min {min(snrs):.1f} max {max(snrs):.1f} dB",
+              flush=True)
+        # cuFFT/cuBLAS/kernel summation orders differ from the CPU's,
+        # and the AGC and squelch gain amplify them
+        check(min(snrs) >= 60.0, f"block {i}: {min(snrs):.1f} dB < 60")
+    med = statistics.median(step_ms[2:])
+    print(f"chan64 step ms per block (CUDA events): "
+          f"{[round(t, 3) for t in step_ms]}; median of blocks 3-8 "
+          f"{med:.3f} ms = {n / med / 1e3:.1f} Msamp/s device-only",
+          flush=True)
+    profile_steps(gpu, xbs)
     return med
 
 
@@ -295,22 +490,28 @@ def run():
     build.library()
     print(f"kernel library ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds} s)", flush=True)
+    print(build.build_log.strip(), flush=True)
 
     phase("3 kernels vs plain")
     kres = kernel_phase(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        phase("4 main path")
-        launches, _ = main_path_phase(tmp)
+        phase("4 bank4 path")
+        main_path_phase(tmp)
         phase("5 replay")
         replay_phase(tmp)
-    phase("6 cuda vs cpu")
+    phase("6 bank4 cuda vs cpu")
     cuda_vs_cpu_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("7 chan64 path")
+        launches = chan64_phase(tmp)
+    phase("8 chan64 cuda vs cpu")
+    chan64_cuda_vs_cpu_phase()
 
     rows = []
     for fn, source, replaces in kernels.KERNELS:
         res = kres[fn.__name__]
-        main = res[0]        # the largest main-path shape
+        main = res[0]        # the chan64 path's shape
         rows.append({"name": fn.__name__, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[fn.__name__],
                      "max_abs_err": max(r[1] for r in res),

@@ -1,12 +1,18 @@
-"""Carry a JAX bank's state, params and constants into a port ReceiverBank.
+"""Carry a JAX bank's state, params and constants into a port bank.
 
-The JAX ReceiverBank keeps its state and params as NamedTuple trees
-(complex leaves packed into float pairs). Unpacked to complex and turned
-leaf by leaf into numpy nested dicts with the same field names, they load
-here, so a JAX bank stopped after k blocks can be continued in the port:
+The JAX ReceiverBank and ChannelizerBank keep their state and params as
+NamedTuple trees (complex leaves packed into float pairs). Unpacked to
+complex and turned leaf by leaf into numpy nested dicts with the same
+field names, they load here, so a JAX bank stopped after k blocks can be
+continued in the port:
 
-    state  {"hist", "ch": {"nco_phase", "demod": {<DemodState fields>}}}
-    params {"nco_k", "video_row", "demod": {<DemodParams fields>}}
+    ReceiverBank
+      state  {"hist", "ch": {"nco_phase", "demod": {<DemodState fields>}}}
+      params {"nco_k", "video_row", "demod": {<DemodParams fields>}}
+    ChannelizerBank
+      state  {"chan_hist", "nco_phase", "rs_hist",
+              "demod": {<DemodState fields>}}
+      params {"nco_k", "video_row", "demod": {<DemodParams fields>}}
 
 Integer leaves become int64, complex leaves complex64, the rest float32 or
 bool, each on the bank's device. Nothing here imports jax.
@@ -19,6 +25,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from pysdr_tpu_torch.models.channelizer_bank import (ChanBankState,
+                                                     ChannelizerBank,
+                                                     ChanParams)
 from pysdr_tpu_torch.models.receiver import (BankState, ChannelParams,
                                              ChannelState, ReceiverBank)
 from pysdr_tpu_torch.ops import demod as demod_ops
@@ -74,3 +83,29 @@ def constants_from_numpy(bank: ReceiverBank, video_bank, carrier_taps,
     bank.pilot_taps = _tensor(pilot_taps, dev)
     if af_taps is not None:
         bank.params.demod.af_taps = _tensor(af_taps, dev)
+
+
+def chanbank_state_from_numpy(bank: ChannelizerBank,
+                              tree: dict) -> ChanBankState:
+    """Load a JAX ChanBankState (nested dict of numpy leaves, unpacked to
+    complex) into bank.state."""
+    dev = bank.device
+    bank.state = ChanBankState(
+        chan_hist=_tensor(tree["chan_hist"], dev),
+        nco_phase=_tensor(tree["nco_phase"], dev),
+        rs_hist=_tensor(tree["rs_hist"], dev),
+        demod=_fill(demod_ops.DemodState, tree["demod"], dev))
+    return bank.state
+
+
+def chanbank_params_from_numpy(bank: ChannelizerBank,
+                               tree: dict) -> ChanParams:
+    """Load JAX ChanParams (nested dict of numpy leaves, af_taps complex)
+    into bank.params. A later control-plane call rewrites the row of the
+    channel it touches from the bank's channel settings."""
+    dev = bank.device
+    bank.params = ChanParams(
+        nco_k=_tensor(tree["nco_k"], dev),
+        video_row=_tensor(tree["video_row"], dev),
+        demod=_fill(demod_ops.DemodParams, tree["demod"], dev))
+    return bank.params

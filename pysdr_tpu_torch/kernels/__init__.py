@@ -5,7 +5,7 @@ by the first launch (kernels.build.library)."""
 
 from __future__ import annotations
 
-from pysdr_tpu_torch.kernels import scan
+from pysdr_tpu_torch.kernels import pfb, scan
 
 # (wrapper, source in the repo, the JAX code it replaces)
 KERNELS = (
@@ -13,6 +13,8 @@ KERNELS = (
      "pysdr_tpu/ops/scanops.py:23"),
     (scan.sr_latch, "pysdr_tpu_torch/csrc/scan.cu",
      "pysdr_tpu/ops/scanops.py:66"),
+    (pfb.pfb_branch, "pysdr_tpu_torch/csrc/pfb.cu",
+     "pysdr_tpu/ops/channelizer.py:85"),
 )
 
 

@@ -1,7 +1,8 @@
 """ctypes wrappers of the scan kernels in csrc/scan.cu.
 
-Each wrapper checks device, dtype, shape and contiguity and raises on
-anything its kernel does not take, allocates the outputs with
+Each wrapper checks dtype, shape, contiguity and device
+(kernels.build.check_tensors) and raises on anything its kernel does not
+take, allocates the outputs with
 torch.empty, launches on the current CUDA stream without synchronising,
 raises if the launch returned a CUDA error, and counts its launches in
 `<wrapper>.launches` (reset with kernels.reset_launch_counts). The plain
@@ -24,24 +25,6 @@ def _threads(n: int) -> int:
     return t
 
 
-def _require(x: torch.Tensor, name: str, dtype: torch.dtype, shape):
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got "
-                         f"{getattr(x, 'device', type(x))}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _launch_check(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
-
-
 def linrec(a: torch.Tensor, b: torch.Tensor, y_prev: torch.Tensor):
     """y[i] = a[i]*y[i-1] + b[i] along axis 1. a, b float32 (B, n, k)
     contiguous CUDA; y_prev (B, k). Returns (y (B, n, k), y_last (B, k))."""
@@ -50,9 +33,9 @@ def linrec(a: torch.Tensor, b: torch.Tensor, y_prev: torch.Tensor):
     B, n, k = a.shape
     if n < 1 or B * n * k >= 2 ** 31:
         raise ValueError(f"linrec: unsupported shape {(B, n, k)}")
-    _require(a, "a", torch.float32, (B, n, k))
-    _require(b, "b", torch.float32, (B, n, k))
-    _require(y_prev, "y_prev", torch.float32, (B, k))
+    f32 = (torch.float32,)
+    build.check_tensors((a, "a", f32, (B, n, k)), (b, "b", f32, (B, n, k)),
+                        (y_prev, "y_prev", f32, (B, k)))
     if b.device != a.device or y_prev.device != a.device:
         raise ValueError("linrec: inputs on different devices")
     y = torch.empty_like(a)
@@ -64,7 +47,7 @@ def linrec(a: torch.Tensor, b: torch.Tensor, y_prev: torch.Tensor):
                                   y_prev.data_ptr(), y.data_ptr(),
                                   y_last.data_ptr(), B, n, k, _threads(n),
                                   stream)
-    _launch_check(rc, "linrec")
+    build.check_launch(rc, "linrec")
     linrec.launches += 1
     return y, y_last
 
@@ -80,9 +63,9 @@ def sr_latch(set_: torch.Tensor, reset: torch.Tensor, g_prev: torch.Tensor):
     B, n = set_.shape
     if n < 1 or B * n >= 2 ** 31:
         raise ValueError(f"sr_latch: unsupported shape {(B, n)}")
-    _require(set_, "set_", torch.bool, (B, n))
-    _require(reset, "reset", torch.bool, (B, n))
-    _require(g_prev, "g_prev", torch.float32, (B,))
+    build.check_tensors((set_, "set_", (torch.bool,), (B, n)),
+                        (reset, "reset", (torch.bool,), (B, n)),
+                        (g_prev, "g_prev", (torch.float32,), (B,)))
     if reset.device != set_.device or g_prev.device != set_.device:
         raise ValueError("sr_latch: inputs on different devices")
     gate = torch.empty((B, n), dtype=torch.float32, device=set_.device)
@@ -95,7 +78,7 @@ def sr_latch(set_: torch.Tensor, reset: torch.Tensor, g_prev: torch.Tensor):
                                    g_prev.data_ptr(), gate.data_ptr(),
                                    gate_last.data_ptr(), B, n, _threads(n),
                                    stream)
-    _launch_check(rc, "sr_latch")
+    build.check_launch(rc, "sr_latch")
     sr_latch.launches += 1
     return gate, gate_last
 

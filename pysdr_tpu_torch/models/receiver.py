@@ -72,7 +72,32 @@ class ReceiverDesign:
                                                af_taps=cfg.af_taps))
 
 
-class ReceiverBank(torch.nn.Module):
+class BankIO:
+    """The host side of a bank's step, shared by ReceiverBank and
+    ChannelizerBank; uses self.device, self.n_rx, self.design.out_block
+    and self.step_device."""
+
+    def to_device_block(self, x) -> torch.Tensor:
+        """Host complex block -> device float32 (n, 2) pairs; a real wire
+        block (n, 2) is moved as is."""
+        x = np.asarray(x)
+        if np.iscomplexobj(x):
+            x = x.astype(np.complex64).view(np.float32).reshape(-1, 2)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def audio_from_wire(self, audio_w: torch.Tensor) -> np.ndarray:
+        """Device audio wire block -> host complex64 (n_rx, out_block)."""
+        flat = cplx.dequantize_audio_host(audio_w.cpu().numpy())
+        return np.ascontiguousarray(flat.reshape(
+            self.n_rx, self.design.out_block, 2)).view(np.complex64)[..., 0]
+
+    def step(self, x) -> np.ndarray:
+        """Host convenience: one RF block (in_block complex) in, host audio
+        (n_rx, out_block) complex64 out; advances the state."""
+        return self.audio_from_wire(self.step_device(self.to_device_block(x)))
+
+
+class ReceiverBank(BankIO, torch.nn.Module):
     """N receivers inside one passband plus their host control plane.
 
     `step(x)` takes a host complex block and returns host audio;
@@ -203,25 +228,6 @@ class ReceiverBank(torch.nn.Module):
             self.state, x_wire, self.params)
         self._last_bb = bb
         return audio_w
-
-    def to_device_block(self, x) -> torch.Tensor:
-        """Host complex block -> device float32 (n, 2) pairs; a real wire
-        block (n, 2) is moved as is."""
-        x = np.asarray(x)
-        if np.iscomplexobj(x):
-            x = x.astype(np.complex64).view(np.float32).reshape(-1, 2)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-    def audio_from_wire(self, audio_w: torch.Tensor) -> np.ndarray:
-        """Device audio wire block -> host complex64 (n_rx, out_block)."""
-        flat = cplx.dequantize_audio_host(audio_w.cpu().numpy())
-        return np.ascontiguousarray(flat.reshape(
-            self.n_rx, self.design.out_block, 2)).view(np.complex64)[..., 0]
-
-    def step(self, x) -> np.ndarray:
-        """Host convenience: one RF block (in_block complex) in, host audio
-        (n_rx, out_block) complex64 out; advances the state."""
-        return self.audio_from_wire(self.step_device(self.to_device_block(x)))
 
     # ---------- control plane (block-boundary mutations) ----------
 

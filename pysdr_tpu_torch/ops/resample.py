@@ -1,5 +1,6 @@
-"""Fused NCO mix + polyphase resample of a channel bank (counterpart of
-pysdr_tpu/ops/resample.py: pack_weights, pack_weight_bank, history_len,
+"""Polyphase resample, and fused NCO mix + polyphase resample of a
+channel bank (counterpart of pysdr_tpu/ops/resample.py: pack_weights,
+pack_weight_bank, history_len, resample_block batched over channels,
 mixed_resample_bank).
 
 Polyphase output y[j*up + u] = sum_s xp[j*down + s] * W[u, s] over the
@@ -47,6 +48,36 @@ def pack_weight_bank(bank: np.ndarray, up: int, down: int) -> np.ndarray:
 def history_len(ntaps: int, up: int) -> int:
     """Input-rate history carried across blocks: Kp - 1."""
     return taps_per_phase(ntaps, up) - 1
+
+
+def resample_block(x: torch.Tensor, hist: torch.Tensor,
+                   weights: torch.Tensor, *, up: int, down: int):
+    """Resample every channel's block by up/down with its own weight row.
+
+    x complex64 (B, n), n % down == 0; hist complex64 (B, Kp-1) each
+    channel's input tail; weights float32 (B, up, 1, L) from pack_weights.
+    Returns (y complex64 (B, n*up//down), new_hist (B, Kp-1)). Real and
+    imaginary parts ride a batch axis of the same q slab matmuls."""
+    B, n = x.shape
+    if n % down:
+        raise ValueError(f"block {n} is not a multiple of down={down}")
+    _, up_w, _, L = weights.shape
+    if up_w != up:
+        raise ValueError(f"weights carry {up_w} phases, expected {up}")
+    q = -(-L // down)
+    m = n // down
+    kp1 = hist.shape[-1]
+    xp = torch.cat([hist, x], dim=-1)                       # (B, n+Kp-1)
+    X = torch.view_as_real(xp).permute(0, 2, 1)             # (B, 2, n+Kp-1)
+    X = torch.nn.functional.pad(X, (0, (m + q) * down - n - kp1))
+    X = X.reshape(B, 2, m + q, down)
+    w = torch.nn.functional.pad(weights[:, :, 0, :], (0, q * down - L))
+    wt = w.reshape(B, up, q, down).permute(0, 2, 3, 1)[:, :, None]
+    y = X[:, :, 0:m] @ wt[:, 0]                     # (B, 2, m, up)
+    for t in range(1, q):
+        y = y + X[:, :, t:t + m] @ wt[:, t]
+    y = torch.complex(y[:, 0], y[:, 1]).reshape(B, m * up)
+    return y, (xp[:, n:] if kp1 else hist)
 
 
 def mixed_resample_bank(x: torch.Tensor, hist: torch.Tensor,

@@ -1,4 +1,4 @@
-"""The streaming executive: source -> device -> ReceiverBank -> sinks
+"""The streaming executive: source -> device -> bank -> sinks
 (counterpart of pysdr_tpu/runtime/executive.py, same surface: run,
 post, stop, stage_report, run_in_thread).
 
@@ -36,8 +36,12 @@ class Executive:
                  psd_callback: Callable | None = None, loop_source=True,
                  wire: str = "f32", pipeline_depth: int = 2,
                  want_bb: bool = True, prefetch: bool = True):
-        """bank: models.receiver.ReceiverBank; source: anything with
-        read_data(n) (DatReader / SynthSource) or read_packed(n);
+        """bank: a models.receiver.ReceiverBank or
+        models.channelizer_bank.ChannelizerBank, driven only through
+        design.{in_block, fs_in, fs_out}, n_rx, device, step_device,
+        audio_from_wire, _last_bb and the control methods post() names;
+        source: anything with read_data(n) (DatReader / SynthSource) or
+        read_packed(n);
         wire: "f32" | "i16" | "i8" RF format across host->device;
         pipeline_depth: device blocks in flight before the oldest drains;
         prefetch: read + quantize + upload the next blocks on a thread."""

@@ -1,8 +1,13 @@
 """The torch port's CLI and executive on the CPU: the replay corpus
-reproduces its pinned outcome, unported flags and a missing card fail
-loudly, a bounded run drops no block, and no module imports jax."""
+reproduces its pinned outcome, the channelizer CLI writes its wavs and
+PNGs, the web viewer drives a channelizer bank, unported flags and a
+missing card fail loudly, a bounded run drops no block, and no module
+imports jax."""
 
+import json
 import os
+import struct
+import urllib.request
 import subprocess
 import sys
 import textwrap
@@ -69,9 +74,107 @@ def test_cli_without_a_card_fails_loudly():
     assert "cuda" in out.stderr and "--device cpu" in out.stderr, report
 
 
+def test_cli_channelizer_writes_wavs_and_pngs(tmp_path):
+    """--channelize 8 at 96 kHz channels (2:1 to 48 kHz): one wav per
+    channel, the synth's station on channel 4 (300 + 50*4 Hz) in channel
+    4's wav, RF and AF waterfalls exported as PNG."""
+    prefix, png = str(tmp_path / "ch"), tmp_path / "png"
+    out, report = run_cli(
+        "-m", "pysdr_tpu_torch", "--device", "cpu", "--channelize", "8",
+        "--fs", "0.768", "--fc", "100.0", "--block", "4096", "--blocks",
+        "3", "--wav", prefix, "--psd", "--png-dir", str(png))
+    assert out.returncode == 0, report
+    assert "Msamp/s), 8 RX" in out.stdout, report
+    wavs = sorted(p.name for p in tmp_path.glob("ch_rx*.wav"))
+    assert wavs == [f"ch_rx{i}.wav" for i in range(8)], report
+    for ch, hz in ((0, 300.0), (4, 500.0)):
+        pk, snr = peak_hz(f"{prefix}_rx{ch}.wav")
+        assert abs(pk - hz) < 10.0 and snr > 40.0, (ch, pk, snr)
+    names = sorted(p.name for p in png.iterdir())
+    assert names == sorted(["RF.png", *(f"AF{i}.png" for i in range(8))])
+    for name in names:
+        data = (png / name).read_bytes()
+        assert data[:8] == b"\x89PNG\r\n\x1a\n", name
+        w, h = struct.unpack(">II", data[16:24])
+        assert w > 64 and h >= 1, (name, w, h)
+
+
+def test_cli_channelizer_replays_the_corpus(tmp_path):
+    """--channelize 8 over am_tones.dat (256 kHz, center 99.94 MHz): the
+    stations at +60 and +100 kHz sit 4 kHz off channels 2 (+64 kHz) and
+    3 (+96 kHz), and an AM envelope ignores the offset."""
+    prefix = str(tmp_path / "rp")
+    out, report = run_cli(
+        "-m", "pysdr_tpu_torch", "--device", "cpu", "--channelize", "8",
+        "--fs", "0.256", "--replay", os.path.join(FIX, "am_tones.dat"),
+        "--no-loop", "--block", "3072", "--wav", prefix)
+    assert out.returncode == 0, report
+    for ch, hz in ((2, 400.0), (3, 800.0)):
+        pk, snr = peak_hz(f"{prefix}_rx{ch}.wav")
+        assert abs(pk - hz) < 10.0 and snr > 40.0, (ch, pk, snr, report)
+
+
+def test_cli_channelize_ignores_bb_like_the_reference(tmp_path, capsys):
+    rc, a = app.run_cli(["--device", "cpu", "--channelize", "4", "--fs",
+                         "0.192", "--block", "1024", "--blocks", "1",
+                         "--bb", "--psd"])
+    assert rc == 0 and a.display is not None and a.display.bb == []
+    assert "--bb is not available with --channelize" in \
+        capsys.readouterr().err
+
+
+def test_cli_bb_feeds_the_baseband_panes():
+    """--bb on the receiver path: the bank emits its baseband, the
+    executive carries it with each block, the BB panes show it."""
+    rc, a = app.run_cli(["--device", "cpu", "--fs", "0.512", "--block",
+                         "1024", "--blocks", "2", "--bb", "--psd-every",
+                         "1"])
+    assert rc == 0 and a.bank.emit_baseband and a.ex.want_bb
+    assert {"RF", "AF0", "BB0"} <= set(a.display.frames)
+    assert a.display.frames["BB0"].waterfall_u8.shape[1] == 1024
+
+
+def _get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.read()
+
+
+def test_webview_channelizer_tune_and_frame():
+    """The reused web viewer against the port's ChannelizerBank: tuning
+    maps the clicked RF frequency to (nearest channel, fine offset); the
+    frame carries one row per channel."""
+    args = app.build_parser().parse_args(
+        ["--device", "cpu", "--channelize", "8", "--fs", "0.768", "--fc",
+         "100.0", "--block", "4096", "--web", "0", "--psd-every", "1"])
+    a = app.App(args)
+    a.start_services()
+    try:
+        p = a.web.port
+        a.ex.run(n_blocks=2)
+        fr = json.loads(_get(p, "/frame.json"))
+        assert fr["ok"] and fr["n_rx"] == 8 and len(fr["rx"]) == 8
+        assert fr["rx"][1]["fc"] == 100e6 + 96e3
+        assert "af" in fr and fr["rf"]["rows"] > 0
+        # channel centers are fc + fftfreq: channel 1 sits at +96 kHz
+        target = 100e6 + 96e3 + 5e3
+        _get(p, f"/tune?f={target:.0f}")
+        _get(p, "/mode?m=NFM&rx=3")
+        a.ex._apply_pending()
+        ch = a.bank.channel_of(target)
+        assert ch == 1
+        assert abs(a.bank._ch_cfgs[ch].fine_offset_hz - 5e3) < 1.0
+        assert a.bank._ch_cfgs[3].mode.name == "NFM"
+        a.ex.run(n_blocks=1)
+        fr = json.loads(_get(p, "/frame.json"))
+        assert abs(fr["rx"][1]["fc"] - target) < 1.0
+    finally:
+        a.stop_services()
+
+
 @pytest.mark.parametrize("flag", [
-    ["--channelize", "8"], ["--mesh", "1,8"], ["--rtty", "0"], ["--psd"],
-    ["--bb"], ["--png-dir", "x"], ["--web", "0"], ["--hamlib"],
+    ["--save-iq"], ["--mesh", "1,8"], ["--rtty", "0"], ["--rtl-tcp", "h:1"],
+    ["--fifo", "f"], ["--preset", "x"], ["--aux-wav", "f"], ["--hamlib"],
     ["--rig", "h:1"], ["--udp-port", "1"], ["--hop", "1.0"],
     ["--hop-schedule", "f"]])
 def test_unported_flag_exits_2(flag, capsys):
@@ -128,7 +231,7 @@ def test_every_module_imports_without_jax():
                 if name == "jax" or name.startswith(("jax.", "jaxlib")):
                     raise ImportError("jax import refused: " + name)
         sys.meta_path.insert(0, NoJax())
-        for m in {mods!r}:
+        for m in {mods!r} + ["pysdr_tpu.runtime.webview"]:
             importlib.import_module(m.removesuffix(".__main__"))
         assert not any(k == "jax" or k.startswith("jax.")
                        for k in sys.modules)

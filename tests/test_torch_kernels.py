@@ -1,4 +1,4 @@
-"""The hand-written CUDA scan kernels (pysdr_tpu_torch/csrc/scan.cu)
+"""The hand-written CUDA kernels (pysdr_tpu_torch/csrc/scan.cu, pfb.cu)
 against their plain torch twins, and the twins against a serial loop.
 
 Imports no jax, so it also runs on a card host without the JAX package:
@@ -16,14 +16,21 @@ import torch
 from pysdr_tpu.config import PipelineConfig, ReceiverConfig
 from pysdr_tpu.tables import Mode
 from pysdr_tpu_torch import kernels
+from pysdr_tpu_torch.kernels import pfb as kpfb
 from pysdr_tpu_torch.kernels import scan as kscan
+from pysdr_tpu_torch.models.channelizer_bank import (ChannelizerBankConfig,
+                                                     ChannelizerBank)
 from pysdr_tpu_torch.models.receiver import ReceiverBank
-from pysdr_tpu_torch.ops import demod, scanops
+from pysdr_tpu_torch.ops import channelizer, cplx, demod, scanops
 
 torch.set_num_threads(1)
 
 # the main path's scan shapes at bank4: pass A, pass B, the AGC windows
 MAIN_SHAPES = [(4, 24576, 4), (4, 24576, 2), (4, 384, 1)]
+# the same at chan64 (64 channels, 12288-sample audio blocks)
+CHAN64_SHAPES = [(64, 12288, 4), (64, 12288, 2), (64, 192, 1)]
+# the branch filter's (M, N, K) at chan64 and two small ones
+PFB_SHAPES = [(49152, 64, 12), (5, 8, 12), (3, 4, 1)]
 
 
 @pytest.fixture
@@ -105,6 +112,74 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
                        torch.zeros(1, 8, dtype=torch.bool), torch.zeros(1))
 
 
+def pfb_inputs(m, nch, k, wire, seed):
+    """A wire block of m*nch pairs, a non-zero history, random taps."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, (m * nch, 2)).astype(np.float32)
+    hist = (rng.standard_normal((k - 1) * nch)
+            + 1j * rng.standard_normal((k - 1) * nch)).astype(np.complex64)
+    taps = rng.standard_normal((nch, k)).astype(np.float32)
+    return (torch.from_numpy(cplx.quantize_host(x, wire)),
+            torch.from_numpy(hist), torch.from_numpy(taps))
+
+
+def serial_branch_filter(x, hist, taps):
+    """v[m, r] = sum_k taps[r, k] * xp[(m + K-1-k)*N + r], in float64."""
+    nch, k = taps.shape
+    xp = np.concatenate([hist, x]).astype(np.complex128)
+    m_out = len(x) // nch
+    v = np.zeros((m_out, nch), np.complex128)
+    for m in range(m_out):
+        for r in range(nch):
+            for kk in range(k):
+                v[m, r] += taps[r, kk] * xp[(m + k - 1 - kk) * nch + r]
+    return v, xp[len(x):]
+
+
+@pytest.mark.parametrize("m,nch,k", [(6, 8, 12), (3, 4, 1), (1, 2, 5)])
+def test_branch_filter_ref_matches_serial_loop(m, nch, k):
+    xw, hist, taps = pfb_inputs(m, nch, k, "f32", 7)
+    x = torch.view_as_complex(xw)
+    v, new_hist = channelizer.branch_filter_ref(x, hist, taps)
+    v_ref, h_ref = serial_branch_filter(x.numpy(), hist.numpy(),
+                                        taps.numpy())
+    assert np.abs(v.numpy() - v_ref).max() / np.abs(v_ref).max() <= 1e-6
+    np.testing.assert_array_equal(new_hist.numpy(), h_ref.astype(np.complex64))
+
+
+def test_cpu_branch_filter_never_reaches_the_kernel(monkeypatch):
+    """A CPU wire block takes the plain twin (the kernel wrapper is never
+    called); a tensor off the CPU goes to the wrapper, which raises for
+    anything but a CUDA tensor: no silent fallback."""
+    def refuse(*a):
+        raise AssertionError("kernel wrapper called with a CPU tensor")
+    monkeypatch.setattr(kpfb, "pfb_branch", refuse)
+    for wire in ("f32", "i16", "i8"):
+        xw, hist, taps = pfb_inputs(5, 8, 12, wire, 8)
+        v, _ = channelizer.branch_filter(xw, hist, taps)
+        assert v.shape == (5, 8)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        channelizer.branch_filter(
+            torch.empty((16, 2), device="meta"),
+            torch.empty(88, dtype=torch.complex64, device="meta"),
+            torch.empty((8, 12), device="meta"))
+
+
+def test_pfb_wrapper_rejects_a_wrong_dtype_or_shape():
+    xw, hist, taps = pfb_inputs(5, 8, 12, "i8", 9)
+    with pytest.raises(ValueError, match="float32 or torch.int16"):
+        kpfb.pfb_branch(xw.to(torch.int32), hist, taps)
+    with pytest.raises(ValueError, match="complex64"):
+        kpfb.pfb_branch(xw, hist.real.contiguous(), taps)
+    with pytest.raises(ValueError, match="shape"):
+        kpfb.pfb_branch(xw, hist[:-1], taps)
+    with pytest.raises(ValueError, match="multiple of N"):
+        kpfb.pfb_branch(xw[:-1], hist, taps)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kpfb.pfb_branch(xw, hist, taps)
+
+
 def test_threads_per_block():
     assert kscan._threads(1) == 32
     assert kscan._threads(384) == 32
@@ -156,8 +231,20 @@ def test_linrec_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHAN64_SHAPES)
+def test_linrec_kernel_matches_plain_at_chan64(cuda, shape):
+    a, b, yp = (torch.from_numpy(v) for v in scan_inputs(shape, 10))
+    y_ref, l_ref = scanops.linrec_ref(a, b, yp)
+    y, last = kscan.linrec(a.to(cuda), b.to(cuda), yp.to(cuda))
+    torch.cuda.synchronize()
+    scale = y_ref.abs().max().item()
+    assert (y.cpu() - y_ref).abs().max().item() / scale <= 1e-4
+    assert (last.cpu() - l_ref).abs().max().item() / scale <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 24576), (3, 5), (1, 1),
-                                   (2, 100003)])
+                                   (2, 100003), (64, 12288)])
 def test_sr_latch_kernel_matches_plain(cuda, shape):
     s, r, gp = (torch.from_numpy(v) for v in latch_inputs(shape, 4))
     g_ref, l_ref = scanops.sr_latch_ref(s, r, gp)
@@ -173,7 +260,8 @@ def test_dispatch_takes_the_kernel_on_cuda(cuda):
     scanops.one_pole(a, 0.1, torch.zeros(2, device=cuda))
     scanops.sr_latch(a[:, 0] > 0, a[:, 0] < 0, 1.0)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"linrec": 1, "sr_latch": 1}
+    assert kernels.launch_counts() == {"linrec": 1, "sr_latch": 1,
+                                       "pfb_branch": 0}
 
 
 @pytest.mark.cuda
@@ -199,7 +287,8 @@ def test_bank_step_does_not_wait_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     # per step: linrec for pass A, pass B and the AGC; sr_latch once
-    assert kernels.launch_counts() == {"linrec": 9, "sr_latch": 3}
+    assert kernels.launch_counts() == {"linrec": 9, "sr_latch": 3,
+                                       "pfb_branch": 0}
     for out in outs:
         assert out.dtype == torch.int16
         assert out.shape == (bank.n_rx * cfg.out_block * 2,)
@@ -216,3 +305,60 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         kscan.linrec(a.double(), a, torch.zeros((2, 3), device=cuda))
     with pytest.raises(ValueError, match="shape"):
         kscan.linrec(a, a, torch.zeros((2, 2), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["i8", "i16", "f32"])
+@pytest.mark.parametrize("m,nch,k", PFB_SHAPES)
+def test_pfb_branch_kernel_matches_plain(cuda, m, nch, k, wire):
+    """On every wire, with a non-zero history: 1e-5 of the largest output
+    (fused multiply-adds against separate ones), the new history exact."""
+    xw, hist, taps = pfb_inputs(m, nch, k, wire, 11)
+    v_ref, h_ref = channelizer.branch_filter(xw, hist, taps)
+    before = kpfb.pfb_branch.launches
+    v, new_hist = channelizer.branch_filter(xw.to(cuda), hist.to(cuda),
+                                            taps.to(cuda))
+    torch.cuda.synchronize()
+    assert kpfb.pfb_branch.launches == before + 1
+    assert v.shape == (m, nch) and v.dtype == torch.complex64
+    assert (v.cpu() - v_ref).abs().max().item() \
+        / v_ref.abs().max().item() <= 1e-5
+    assert torch.equal(new_hist.cpu(), h_ref)
+
+
+@pytest.mark.cuda
+def test_pfb_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    xw, hist, taps = (t.to(cuda) for t in pfb_inputs(5, 8, 12, "i16", 12))
+    with pytest.raises(ValueError, match="contiguous"):
+        kpfb.pfb_branch(xw.t().contiguous().t(), hist, taps)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kpfb.pfb_branch(xw, hist.cpu(), taps)
+    with pytest.raises(ValueError, match="shape"):
+        kpfb.pfb_branch(xw, hist, taps[:, :-1].contiguous())
+
+
+@pytest.mark.cuda
+def test_chanbank_step_does_not_wait_on_the_card(cuda):
+    """An 8-channel bank step launches every kernel (the branch filter
+    once, the scans as in the receiver bank) and makes no blocking copy
+    or stream sync: sync debug mode 'error' raises on any."""
+    cfg = ChannelizerBankConfig(fs_in=8 * 192e3, n_channels=8,
+                                out_block=2048, fc_hz=100e6)
+    bank = ChannelizerBank(cfg, audio_wire="i8", device=cuda)
+    rng = np.random.default_rng(13)
+    n = bank.design.in_block
+    xbs = [torch.from_numpy(cplx.quantize_host(
+        rng.uniform(-0.5, 0.5, (n, 2)).astype(np.float32), "i8")).to(cuda)
+        for _ in range(3)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [bank.step_device(xb) for xb in xbs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.launch_counts() == {"linrec": 9, "sr_latch": 3,
+                                       "pfb_branch": 3}
+    for out in outs:
+        assert out.dtype == torch.int8
+        assert out.shape == (8 * cfg.out_block * 2,)
