@@ -8,8 +8,10 @@ Phases, each of which must pass (exit 1 on the first failure):
   2. build: nvcc builds the hand-written kernels (csrc/*.cu, sm_90a).
   3. kernels: each kernel against its plain torch twin on the card at the
      main paths' shapes (linrec <= 1e-4 relative, sr_latch exact,
-     pfb_branch <= 1e-5 relative on the i8 and f32 wires), with
-     CUDA-event times of both (median of 20 runs).
+     pfb_branch <= 1e-5 relative on the i8 and f32 wires, rtty_scores'
+     soft bits bit-equal and its scores <= 1e-4 absolute at the
+     100-channel decoder's (F, nfft, C, T) with and without a soft tail
+     and at one channel), with CUDA-event times of both (median of 20).
   4. bank4 path: `python -m pysdr_tpu_torch`'s entry point at the full
      width of the 4-RX bank (8 MHz, AM/NFM/USB/CW, 24576-sample audio
      blocks) from the synth source into wavs; its kernels (the scans)
@@ -23,16 +25,28 @@ Phases, each of which must pass (exit 1 on the first failure):
   7. chan64 path: the entry point with the 64-channel channelizer bank
      (12.288 MHz in 64 x 192 kHz channels, 12288-sample audio blocks, i8
      RF and mu-law i8 audio wires, squelch 10 dB, PSD + PNG export) from
-     the synth source; every kernel launched; the channels that carry a
-     station show its 300 + 50*i Hz tone >= 40 dB over the floor, an idle
-     channel is squelched silent, RF.png and AF0.png parse; then the web
-     viewer's /frame.json over a 3-block run shows 64 channels.
+     the synth source; its kernels (the scans, pfb_branch) launched; the
+     channels that carry a station show its 300 + 50*i Hz tone >= 40 dB
+     over the floor, an idle channel is squelched silent, RF.png and
+     AF0.png parse; then the web viewer's /frame.json over a 3-block run
+     shows 64 channels.
   8. chan64 CUDA vs CPU: as 6, for the channelizer bank (>= 60 dB on the
      channels that carry a station).
+  9. rtty path: the entry point with examples/rtty_decode.sh's flags on
+     tests/fixtures/rtty_cq.dat decodes "CQ" and "AA2IL"; then the
+     100-station layout of tests/test_rtty.py (synthesized at 96 kHz,
+     resampled to 2.048 MHz, 120 kHz off the file's center) replayed
+     from 0.75 s with --fs-out 96 --block 24576 --rtty 0: >= 90 of the
+     100 STii strings in their own channel's text, rtty_scores launched
+     once on every block with channels, and the decoder's wall ms per
+     block against the block's 256 ms; then bank4 for 2 blocks with
+     --save-iq --save-baseband --save-demod, each .dat parsed back.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches (from the chan64 run, the path that runs
-all of them), errors and times (at the chan64 shapes). Imports no JAX.
+the kernels with their launches summed over the paths' runs (phases 4, 7
+and 9, each with the counts set to 0 before it), their largest error
+over phase 3's shapes and their times at their first shape there.
+Imports no JAX, and of this repository only pysdr_tpu_torch.
 """
 
 from __future__ import annotations
@@ -53,14 +67,28 @@ BANK4 = ["--fs", "8", "--block", "24576",
 CHAN64 = ["--channelize", "64", "--fs", "12.288", "--fc", "100.0",
           "--block", "12288", "--wire", "i8", "--audio-wire", "i8",
           "--squelch", "10"]
-# the first shape of each kernel is the chan64 path's, reported in the
-# kernels line; the rest are bank4's (and pfb_branch on the f32 wire)
+RTTY = ["--no-loop", "--fc", "100.0", "--mode", "RTTY", "--rtty", "0"]
+# the first shape of each kernel is the one its kernels-line time is
+# taken at: chan64's for the scans and the PFB, then bank4's (and
+# pfb_branch on the f32 wire); rtty_scores' (F, nfft, C, T) are the
+# 100-channel decoder's at 96 kHz without and with its soft tail, and
+# one channel
 KERNEL_SHAPES = {"linrec": [(64, 12288, 4), (64, 12288, 2), (64, 192, 1),
                             (4, 24576, 4), (4, 24576, 2), (4, 384, 1)],
                  "sr_latch": [(64, 12288), (4, 24576)],
                  "pfb_branch": [(49152, 64, 12, "i8"),
-                                (49152, 64, 12, "f32")]}
+                                (49152, 64, 12, "f32")],
+                 "rtty_scores": [(43, 4096, 100, 64), (43, 4096, 100, 0),
+                                 (43, 4096, 1, 64)]}
 BANK4_KERNELS = ("linrec", "sr_latch")
+CHAN64_KERNELS = ("linrec", "sr_latch", "pfb_branch")
+# the 100-station layout of tests/test_rtty.py: station i at
+# (i - 50) * 460 + 137 Hz sending "RYRY STii STii"
+RTTY_STATIONS = 100
+RTTY_FS = 96e3
+RTTY_BLOCK = 24576                     # 256 ms of baseband a block
+RTTY_UP, RTTY_DOWN = 64, 3             # 96 kHz -> an RTL rate, 2.048 MHz
+RTTY_SHIFT = 120e3                     # the RX's offset from the center
 
 
 class SmokeFailure(Exception):
@@ -91,6 +119,23 @@ def cuda_ms(fn, reps=20):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_us(fn, name, reps=20):
+    """Mean device time in us of the kernel `{name}_kernel` over reps
+    calls of fn(), from torch.profiler (no host cost)."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if f"{name}_kernel" in e.key
+          and e.device_type == torch.autograd.DeviceType.CUDA]
+    check(ev, f"torch.profiler saw no {name}_kernel")
+    return (sum(e.self_device_time_total for e in ev)
+            / sum(e.count for e in ev))
 
 
 def wav_peak(path, skip_frac=1 / 3):
@@ -187,6 +232,38 @@ def kernel_phase(device):
         check(torch.equal(nh, nh_ref), f"pfb_branch {shape} {wire}: new "
               "history differs from its plain twin")
         out.setdefault("pfb_branch", []).append((shape, err, ms, plain))
+    from pysdr_tpu_torch.kernels import rtty as krtty
+    from pysdr_tpu_torch.models import rtty
+    design = rtty.RTTYDesign(fs=RTTY_FS)
+    tmpl = torch.from_numpy(rtty.char_templates(design)).to(device)
+    for f, nfft, nch, t_rows in KERNEL_SHAPES["rtty_scores"]:
+        mags = torch.from_numpy(rng.uniform(0.0, 3.0, (f, nfft))
+                                .astype(np.float32)).to(device)
+        mark = rng.integers(0, nfft, nch).astype(np.int32)
+        mark[0] = 2                    # its space bin wraps below 0
+        space = (mark - design.shift_bins) % nfft
+        mark, space = (torch.from_numpy(b.astype(np.int32)).to(device)
+                       for b in (mark, space))
+        tail = torch.from_numpy(rng.uniform(-1.0, 1.0, (t_rows, nch))
+                                .astype(np.float32)).to(device)
+        args = (mags, mark, space, tail, tmpl)
+        soft, sc = krtty.rtty_scores(*args)
+        soft_ref, sc_ref = rtty.rtty_scores_ref(*args)
+        torch.cuda.synchronize()
+        shape = (f, nfft, nch, t_rows)
+        # the same IEEE operations in the same order: bit for bit
+        check(torch.equal(soft, soft_ref), f"rtty_scores {shape}: soft "
+              "bits differ from the plain twin's")
+        err = (sc - sc_ref).abs().max().item()
+        ms = cuda_ms(lambda: krtty.rtty_scores(*args))
+        plain = cuda_ms(lambda: rtty.rtty_scores_ref(*args))
+        us = device_us(lambda: krtty.rtty_scores(*args), "rtty_scores")
+        print(f"rtty_scores {shape}: soft bit-equal, scores max_abs_err "
+              f"{err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+              f"(kernel device time alone {us:.3f} us)", flush=True)
+        # 32 fused multiply-adds of terms <= 1 against the twin's matmul
+        check(err <= 1e-4, f"rtty_scores {shape} scores err {err:.3e}")
+        out.setdefault("rtty_scores", []).append((shape, err, ms, plain))
     return out
 
 
@@ -311,8 +388,9 @@ def chan64_phase(tmp):
     check(rc == 0 and a is not None, f"chan64 path exited {rc}")
     print(f"launches: {launches}", flush=True)
     print(f"stage_report ms/block: {a.ex.stage_report()}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the chan64 path")
+    for name in CHAN64_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "chan64 path")
     bank = a.bank
     tensors = [*bank.buffers(), bank.state.chan_hist, bank.state.rs_hist,
                bank.state.demod.agc_env, bank.params.nco_k]
@@ -459,6 +537,162 @@ def chan64_cuda_vs_cpu_phase():
     return med
 
 
+def rtty_composite(path):
+    """Write the 100-station layout as an RF capture: synthesized at 96
+    kHz, resampled to 2.048 MHz, shifted up by RTTY_SHIFT and saved with
+    its center RTTY_SHIFT below 100 MHz, so an RX at 100.0 MHz sits
+    RTTY_SHIFT off the file's center (as in tests/test_app.py). Returns
+    the stations' baseband carriers in Hz."""
+    import numpy as np
+    from scipy import signal
+
+    from pysdr_tpu_torch.io import datfile
+    from pysdr_tpu_torch.models import rtty
+
+    design = rtty.RTTYDesign(fs=RTTY_FS)
+    carriers = (np.arange(RTTY_STATIONS) - 50) * 460.0 + 137.0
+    x = None
+    for i, c in enumerate(carriers):
+        # 1/100 of full scale each, so the sum stays inside +-1
+        xi = rtty.synthesize_rtty(f"RYRY ST{i:02d} ST{i:02d}", design,
+                                  carrier_hz=c, amplitude=0.01)
+        x = xi.astype(np.complex128) if x is None else x + xi[:len(x)]
+    fs_rf = RTTY_FS * RTTY_UP / RTTY_DOWN
+    y = signal.resample_poly(x, RTTY_UP, RTTY_DOWN)
+    y *= np.exp(2j * np.pi * RTTY_SHIFT / fs_rf * np.arange(len(y)))
+    w = datfile.DatWriter(path, fs=fs_rf, fc=100e6 - RTTY_SHIFT)
+    w.save_data(y.astype(np.complex64))
+    w.close()
+    return carriers
+
+
+def station_of(design, mark_bin, carriers):
+    """The station whose mark tone (carrier + shift/2) is nearest the
+    channel's mark bin."""
+    import numpy as np
+    f = mark_bin * design.bin_hz
+    if mark_bin >= design.nfft // 2:
+        f -= design.fs
+    return int(np.argmin(np.abs(carriers + design.shift_hz / 2 - f)))
+
+
+def run_timed_rtty(argv):
+    """app.run_cli(argv) with each RTTYDecoder.decode_block call timed on
+    the host's clock; the scores sync to the host inside the call, so its
+    wall time covers the device work. Returns (rc, app, calls) with one
+    (ms, channels after the call, rtty_scores launches) per call."""
+    from pysdr_tpu_torch import app
+    from pysdr_tpu_torch.kernels import rtty as krtty
+    from pysdr_tpu_torch.models import rtty
+
+    calls = []
+    orig = rtty.RTTYDecoder.decode_block
+
+    def timed(self, x):
+        n0 = krtty.rtty_scores.launches
+        t0 = time.perf_counter()
+        out = orig(self, x)
+        calls.append(((time.perf_counter() - t0) * 1e3, len(self.channels),
+                      krtty.rtty_scores.launches - n0))
+        return out
+    rtty.RTTYDecoder.decode_block = timed
+    try:
+        rc, a = app.run_cli(argv)
+    finally:
+        rtty.RTTYDecoder.decode_block = orig
+    return rc, a, calls
+
+
+def rtty_phase(tmp):
+    """The RTTY path: the rtty_cq.dat corpus, the 100-station layout at
+    full width, and the recording taps on bank4. Returns the launches of
+    its three runs, summed."""
+    import torch
+
+    from pysdr_tpu_torch import kernels
+    from pysdr_tpu_torch.io import datfile
+
+    total = {}
+
+    def drive(argv):
+        print("argv: " + " ".join(argv), flush=True)
+        kernels.reset_launch_counts()
+        rc, a, calls = run_timed_rtty(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"launches: {launches}", flush=True)
+        check(rc == 0 and a is not None, f"{argv} exited {rc}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        return a, calls, launches
+
+    a, calls, launches = drive([
+        "--device", "cuda", "--replay",
+        os.path.join(ROOT, "tests", "fixtures", "rtty_cq.dat"), *RTTY,
+        "--block", "4096"])
+    text = "".join(a.rtty_text)
+    print(f"rtty_cq.dat: {text!r}", flush=True)
+    check("CQ" in text and "AA2IL" in text, f"rtty_cq.dat decoded {text!r}")
+    check(launches["rtty_scores"] > 0, "rtty_scores never launched on the "
+          "corpus")
+
+    path = os.path.join(tmp, "rtty100.dat")
+    t0 = time.perf_counter()
+    carriers = rtty_composite(path)
+    print(f"wrote the {RTTY_STATIONS}-station capture at "
+          f"{RTTY_FS * RTTY_UP / RTTY_DOWN / 1e6:.3f} MHz in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    a, calls, launches = drive([
+        "--device", "cuda", "--replay", path, "0.75", *RTTY, "--fs-out",
+        str(RTTY_FS / 1e3), "--block", str(RTTY_BLOCK)])
+    print(f"stage_report ms/block: {a.ex.stage_report()}", flush=True)
+    dec = a.rtty
+    got = set()
+    for ch in dec.channels:
+        i = station_of(dec.design, ch["mark_bin"], carriers)
+        if f"ST{i:02d}" in ch["text"]:
+            got.add(i)
+    print(f"{len(dec.channels)} channels; {len(got)} of {RTTY_STATIONS} "
+          f"stations decoded their STii in their own channel; missing "
+          f"{sorted(set(range(RTTY_STATIONS)) - set(got))}", flush=True)
+    check(len(got) >= 90, f"only {len(got)} of {RTTY_STATIONS} stations "
+          "decoded")
+    with_ch = [c for c in calls if c[1] > 0]
+    check(with_ch and all(c[2] == 1 for c in with_ch),
+          f"rtty_scores did not launch once on every block with channels: "
+          f"{[(c[1], c[2]) for c in calls]}")
+    ms = [c[0] for c in calls]
+    budget = RTTY_BLOCK / RTTY_FS * 1e3
+    med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    print(f"decoder wall ms per block: {[round(t, 3) for t in ms]}; median "
+          f"after the first {med:.3f} ms against a {budget:.0f} ms budget "
+          f"= {budget / med:.1f}x real time, so {len(dec.channels)} "
+          f"channels x {budget / med:.1f} = "
+          f"{len(dec.channels) * budget / med:.0f} channel-decoders at real "
+          "time", flush=True)
+
+    prefix = os.path.join(tmp, "taps")
+    a, _, _ = drive(["--device", "cuda", *BANK4, "--blocks", "2",
+                     "--save-iq", "--save-baseband", "--save-demod",
+                     "--save-dir", tmp, "--wav", prefix])
+    d = a.bank.design
+    for tag, fs, n, nch in (("raw_iq", d.fs_in, d.in_block, 1),
+                            ("baseband", d.fs_out, d.out_block, a.bank.n_rx),
+                            ("demod", d.fs_out, d.out_block, a.bank.n_rx)):
+        names = [f for f in os.listdir(tmp) if f.startswith(tag)]
+        check(len(names) == 1, f"{tag}: files {names}")
+        r = datfile.DatReader(os.path.join(tmp, names[0]))
+        x = r.read_data()
+        r.close()
+        print(f"{tag}: {r.header.tag} fs {r.header.fs} nchan "
+              f"{r.header.nchan} shape {x.shape}", flush=True)
+        check(r.header.fs == fs and r.header.nchan == nch
+              and len(x) == 2 * n, f"{tag}: fs {r.header.fs} nchan "
+              f"{r.header.nchan} {x.shape}, want 2 x {n} at {fs}")
+        check(bool(abs(x).max() > 0), f"{tag} is all zeros")
+    return total
+
+
 def run():
     try:
         import torch
@@ -495,27 +729,37 @@ def run():
     phase("3 kernels vs plain")
     kres = kernel_phase(device)
 
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
     with tempfile.TemporaryDirectory() as tmp:
         phase("4 bank4 path")
-        main_path_phase(tmp)
+        add(main_path_phase(tmp)[0])
         phase("5 replay")
         replay_phase(tmp)
     phase("6 bank4 cuda vs cpu")
     cuda_vs_cpu_phase()
     with tempfile.TemporaryDirectory() as tmp:
         phase("7 chan64 path")
-        launches = chan64_phase(tmp)
+        add(chan64_phase(tmp))
     phase("8 chan64 cuda vs cpu")
     chan64_cuda_vs_cpu_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("9 rtty path")
+        add(rtty_phase(tmp))
 
     rows = []
     for fn, source, replaces in kernels.KERNELS:
-        res = kres[fn.__name__]
-        main = res[0]        # the chan64 path's shape
-        rows.append({"name": fn.__name__, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[fn.__name__],
+        name = fn.__name__
+        check(launches[name] > 0, f"kernel {name} launched on no path")
+        res = kres[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
                      "max_abs_err": max(r[1] for r in res),
-                     "ms": main[2], "plain_ms": main[3]})
+                     "ms": res[0][2], "plain_ms": res[0][3]})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

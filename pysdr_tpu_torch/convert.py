@@ -14,12 +14,17 @@ continued in the port:
               "demod": {<DemodState fields>}}
       params {"nco_k", "video_row", "demod": {<DemodParams fields>}}
 
+A JAX RTTYDecoder's streaming state (its channel dicts, the baseband and
+soft-bit tails and the block count) carries over the same way, through
+`rtty_state_from_numpy`.
+
 Integer leaves become int64, complex leaves complex64, the rest float32 or
 bool, each on the bank's device. Nothing here imports jax.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -30,6 +35,7 @@ from pysdr_tpu_torch.models.channelizer_bank import (ChanBankState,
                                                      ChanParams)
 from pysdr_tpu_torch.models.receiver import (BankState, ChannelParams,
                                              ChannelState, ReceiverBank)
+from pysdr_tpu_torch.models.rtty import RTTYDecoder, RTTYDesign
 from pysdr_tpu_torch.ops import demod as demod_ops
 
 
@@ -109,3 +115,22 @@ def chanbank_params_from_numpy(bank: ChannelizerBank,
         video_row=_tensor(tree["video_row"], dev),
         demod=_fill(demod_ops.DemodParams, tree["demod"], dev))
     return bank.params
+
+
+def rtty_state_from_numpy(jax_decoder, device) -> RTTYDecoder:
+    """A port RTTYDecoder on `device` that continues a JAX RTTYDecoder
+    mid-stream: the same design and scan policy, a deep copy of its
+    channel dicts, its baseband tail (complex64), soft-bit tail (float32
+    (T, n_ch)) and block count."""
+    j = jax_decoder
+    dec = RTTYDecoder(RTTYDesign(**dataclasses.asdict(j.design)),
+                      rescan_every=j.rescan_every,
+                      expire_after=j.expire_after, thresh_db=j.thresh_db,
+                      rel_db=j.rel_db, device=device)
+    dec.channels = copy.deepcopy(j.channels)
+    dec._n_blocks = j._n_blocks
+    for name in ("_iq_tail", "_soft_tail"):
+        tail = getattr(j, name)
+        if tail is not None:
+            setattr(dec, name, _tensor(tail, dec.device))
+    return dec

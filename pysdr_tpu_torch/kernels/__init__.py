@@ -1,11 +1,11 @@
-"""Hand-written CUDA kernels of the main path, their build and wrappers.
+"""Hand-written CUDA kernels of the port, their build and wrappers.
 
 Nothing here touches CUDA or nvcc at import time; the library is built
 by the first launch (kernels.build.library)."""
 
 from __future__ import annotations
 
-from pysdr_tpu_torch.kernels import pfb, scan
+from pysdr_tpu_torch.kernels import pfb, rtty, scan
 
 # (wrapper, source in the repo, the JAX code it replaces)
 KERNELS = (
@@ -15,6 +15,8 @@ KERNELS = (
      "pysdr_tpu/ops/scanops.py:66"),
     (pfb.pfb_branch, "pysdr_tpu_torch/csrc/pfb.cu",
      "pysdr_tpu/ops/channelizer.py:85"),
+    (rtty.rtty_scores, "pysdr_tpu_torch/csrc/rtty.cu",
+     "pysdr_tpu/models/rtty.py:117"),
 )
 
 

@@ -28,7 +28,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("scan.cu", "pfb.cu")
+SOURCES = ("scan.cu", "pfb.cu", "rtty.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
@@ -68,6 +68,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pysdr_pfb_branch.argtypes = [ptr, i32, ctypes.c_float, ptr, ptr,
                                      ptr, ptr, i32, i32, i32, ptr]
     lib.pysdr_pfb_branch.restype = i32
+    lib.pysdr_rtty_scores.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.pysdr_rtty_scores.restype = i32
     return lib
 
 

@@ -298,3 +298,23 @@ class ReceiverBank(BankIO, torch.nn.Module):
             self._rx_cfgs[i] = dataclasses.replace(
                 self._rx_cfgs[i], auto_mute=bool(enabled))
         self.params = self._build_params()
+
+    # ---------- verification harness ----------
+
+    def dump_internals(self) -> dict:
+        """Filter-bank dump for numerical cross-validation (`--internals`,
+        the reference's internals.mat harness, receiver.py:864-874): the
+        keys and values of pysdr_tpu's dump, complex taps as float32
+        (n, 2) pairs as the JAX bank keeps them."""
+        d = self.design
+
+        def pairs(t):
+            return torch.view_as_real(t).cpu().numpy()
+        return {
+            "up": d.up, "down": d.down, "fs_in": d.fs_in,
+            "fs_out": d.fs_out,
+            "video_filter_bank": np.asarray(self.video_proto),
+            "carrier_filter": pairs(self.carrier_taps),
+            "af_banks": {i: pairs(self._params_for(rc, 0.0).demod.af_taps)
+                         for i, rc in enumerate(self._rx_cfgs)},
+        }

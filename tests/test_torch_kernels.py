@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (pysdr_tpu_torch/csrc/scan.cu, pfb.cu)
-against their plain torch twins, and the twins against a serial loop.
+"""The hand-written CUDA kernels (pysdr_tpu_torch/csrc/scan.cu, pfb.cu,
+rtty.cu) against their plain torch twins, and the twins against a serial
+loop.
 
 Imports no jax, so it also runs on a card host without the JAX package:
 
@@ -16,10 +17,13 @@ import torch
 from pysdr_tpu.config import PipelineConfig, ReceiverConfig
 from pysdr_tpu.tables import Mode
 from pysdr_tpu_torch import kernels
+from pysdr_tpu_torch.kernels import build
 from pysdr_tpu_torch.kernels import pfb as kpfb
+from pysdr_tpu_torch.kernels import rtty as krtty
 from pysdr_tpu_torch.kernels import scan as kscan
 from pysdr_tpu_torch.models.channelizer_bank import (ChannelizerBankConfig,
                                                      ChannelizerBank)
+from pysdr_tpu_torch.models import rtty
 from pysdr_tpu_torch.models.receiver import ReceiverBank
 from pysdr_tpu_torch.ops import channelizer, cplx, demod, scanops
 
@@ -31,6 +35,11 @@ MAIN_SHAPES = [(4, 24576, 4), (4, 24576, 2), (4, 384, 1)]
 CHAN64_SHAPES = [(64, 12288, 4), (64, 12288, 2), (64, 192, 1)]
 # the branch filter's (M, N, K) at chan64 and two small ones
 PFB_SHAPES = [(49152, 64, 12), (5, 8, 12), (3, 4, 1)]
+# rtty_scores' (F, nfft, C, T): the 100-channel decoder at 96 kHz without
+# and with a carried soft tail, one channel, and a short call with no
+# scores (T + F < L)
+RTTY_SHAPES = [(43, 4096, 100, 0), (43, 4096, 100, 64), (43, 4096, 1, 64),
+               (5, 512, 3, 20)]
 
 
 @pytest.fixture
@@ -212,6 +221,86 @@ def test_demod_scan_constants_are_made_once_per_design_and_device():
                                rtol=1e-7)
 
 
+def rtty_inputs(f, nfft, nch, t_rows, seed):
+    """Random magnitudes, mark bins with the first one low enough that its
+    space bin wraps below 0 (passed unwrapped, as a negative bin, and
+    wrapped), a soft tail in [-1, 1] and the 32 templates of 32 frames."""
+    rng = np.random.default_rng(seed)
+    mags = rng.uniform(0.0, 3.0, (f, nfft)).astype(np.float32)
+    mark = rng.integers(0, nfft, nch).astype(np.int32)
+    space = mark - 7
+    if nch:
+        mark[0], space[0] = 2, -5
+    if nch > 1:
+        space[1] = (mark[1] - 7) % nfft
+    tail = rng.uniform(-1.0, 1.0, (t_rows, nch)).astype(np.float32)
+    tmpl = rtty.char_templates(rtty.RTTYDesign(fs=96e3))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in
+                 (mags, mark, space.astype(np.int32), tail, tmpl))
+
+
+def serial_rtty_scores(mags, mark, space, tail, tmpl):
+    """soft and scores by loops, in float64."""
+    nfft = mags.shape[1]
+    m = mags[:, mark % nfft].astype(np.float64)
+    s = mags[:, space % nfft].astype(np.float64)
+    soft = np.concatenate([tail, (m - s) / (m + s + 1e-9)])
+    L = tmpl.shape[1]
+    n_off = max(len(soft) - L + 1, 0)
+    sc = np.zeros((n_off, soft.shape[1], 32))
+    for o in range(n_off):
+        for c in range(soft.shape[1]):
+            sc[o, c] = tmpl.astype(np.float64) @ soft[o:o + L, c]
+    return soft, sc
+
+
+@pytest.mark.parametrize("shape", RTTY_SHAPES[1:])
+def test_rtty_scores_ref_matches_serial_loop(shape):
+    args = rtty_inputs(*shape, seed=21)
+    soft, sc = rtty.rtty_scores_ref(*args)
+    soft_ref, sc_ref = serial_rtty_scores(*(a.numpy() for a in args))
+    assert soft.shape == soft_ref.shape and sc.shape == sc_ref.shape
+    assert np.abs(soft.numpy() - soft_ref).max() <= 1e-6
+    assert sc.numel() == 0 or np.abs(sc.numpy() - sc_ref).max() <= 1e-5
+
+
+def test_cpu_rtty_scores_never_reach_the_kernel(monkeypatch):
+    """A CPU tensor takes the plain twin: neither the wrapper nor the
+    library is touched. The wrapper itself refuses a CPU tensor before it
+    loads the library."""
+    def refuse(*a):
+        raise AssertionError("kernel path reached with a CPU tensor")
+    monkeypatch.setattr(krtty, "rtty_scores", refuse)
+    monkeypatch.setattr(build, "library", refuse)
+    soft, sc = rtty.rtty_scores(*rtty_inputs(43, 512, 4, 64, 22))
+    assert soft.shape == (107, 4) and sc.shape == (76, 4, 32)
+    monkeypatch.undo()
+    monkeypatch.setattr(build, "library", refuse)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        krtty.rtty_scores(*rtty_inputs(43, 512, 4, 64, 22))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rtty.rtty_scores(*(torch.empty(a.shape, dtype=a.dtype, device="meta")
+                           for a in rtty_inputs(43, 512, 4, 64, 22)))
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguous", "rows",
+                                  "dims"])
+def test_rtty_wrapper_rejects_what_the_kernel_does_not_take(case):
+    mags, mark, space, tail, tmpl = rtty_inputs(43, 512, 4, 64, 23)
+    if case == "dtype":
+        mark, match = mark.long(), "torch.int32"
+    elif case == "shape":
+        tail, match = tail[:, :3].contiguous(), "shape"
+    elif case == "contiguous":
+        mags, match = mags.t().contiguous().t(), "contiguous"
+    elif case == "rows":
+        tmpl, match = tmpl[:31].contiguous(), r"templates: expected shape \(32"
+    else:
+        mags, match = mags.reshape(-1), "dimensions"
+    with pytest.raises(ValueError, match=match):
+        krtty.rtty_scores(mags, mark, space, tail, tmpl)
+
+
 # ---- on the card ----
 
 @pytest.mark.cuda
@@ -261,7 +350,7 @@ def test_dispatch_takes_the_kernel_on_cuda(cuda):
     scanops.sr_latch(a[:, 0] > 0, a[:, 0] < 0, 1.0)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"linrec": 1, "sr_latch": 1,
-                                       "pfb_branch": 0}
+                                       "pfb_branch": 0, "rtty_scores": 0}
 
 
 @pytest.mark.cuda
@@ -288,7 +377,7 @@ def test_bank_step_does_not_wait_on_the_card(cuda):
         torch.cuda.set_sync_debug_mode(0)
     # per step: linrec for pass A, pass B and the AGC; sr_latch once
     assert kernels.launch_counts() == {"linrec": 9, "sr_latch": 3,
-                                       "pfb_branch": 0}
+                                       "pfb_branch": 0, "rtty_scores": 0}
     for out in outs:
         assert out.dtype == torch.int16
         assert out.shape == (bank.n_rx * cfg.out_block * 2,)
@@ -358,7 +447,48 @@ def test_chanbank_step_does_not_wait_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert kernels.launch_counts() == {"linrec": 9, "sr_latch": 3,
-                                       "pfb_branch": 3}
+                                       "pfb_branch": 3, "rtty_scores": 0}
     for out in outs:
         assert out.dtype == torch.int8
         assert out.shape == (8 * cfg.out_block * 2,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RTTY_SHAPES + [(43, 4096, 0, 64)])
+def test_rtty_scores_kernel_matches_plain(cuda, shape):
+    """Soft rows bit-equal to the twin (exact division, the same
+    operations); scores within 1e-4 (32 fused multiply-adds against the
+    twin's matmul). C = 0 launches nothing."""
+    args = rtty_inputs(*shape, seed=24)
+    soft_ref, sc_ref = rtty.rtty_scores_ref(*args)
+    before = krtty.rtty_scores.launches
+    soft, sc = rtty.rtty_scores(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert krtty.rtty_scores.launches == before + (shape[2] > 0)
+    assert soft.shape == soft_ref.shape and sc.shape == sc_ref.shape
+    assert torch.equal(soft.cpu(), soft_ref)
+    if sc.numel():
+        assert (sc.cpu() - sc_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_rtty_wrapper_rejects_mixed_devices(cuda):
+    mags, mark, space, tail, tmpl = (a.to(cuda) for a in
+                                     rtty_inputs(43, 512, 4, 64, 25))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        krtty.rtty_scores(mags, mark, space, tail.cpu(), tmpl)
+
+
+@pytest.mark.cuda
+def test_rtty_templates_too_long_for_shared_memory_fail_the_launch(cuda):
+    """The kernel stages the 32 templates in one block's shared memory
+    (48 KB without opting in); a length past that bound is refused by the
+    library and raised by the wrapper, and counts no launch."""
+    mags, mark, space, tail, _ = (a.to(cuda) for a in
+                                  rtty_inputs(43, 512, 4, 64, 26))
+    tmpl = torch.ones((32, 400), dtype=torch.float32, device=cuda)
+    before = krtty.rtty_scores.launches
+    with pytest.raises(RuntimeError, match="rtty_scores kernel launch "
+                                           "failed"):
+        krtty.rtty_scores(mags, mark, space, tail, tmpl)
+    assert krtty.rtty_scores.launches == before
