@@ -7,11 +7,15 @@ Phases, each of which must pass (exit 1 on the first failure):
   1. device: a CUDA device is present; print its name and power limit.
   2. build: nvcc builds the hand-written kernels (csrc/*.cu, sm_90a).
   3. kernels: each kernel against its plain torch twin on the card at the
-     main paths' shapes (linrec <= 1e-4 relative, sr_latch exact,
-     pfb_branch <= 1e-5 relative on the i8 and f32 wires, rtty_scores'
-     soft bits bit-equal and its scores <= 1e-4 absolute at the
-     100-channel decoder's (F, nfft, C, T) with and without a soft tail
-     and at one channel), with CUDA-event times of both (median of 20).
+     main paths' shapes (linrec <= 1e-4 relative, with `a` as the main
+     path gives it, and at edge shapes around its tile; sr_latch exact,
+     also across runs of tiles with no command; pfb_branch <= 1e-5
+     relative on the i8 and f32 wires; rtty_scores' soft bits bit-equal
+     and its scores <= 1e-4 absolute at the 100-channel decoder's (F,
+     nfft, C, T) with and without a soft tail and at one channel), with
+     CUDA-event times of both (median of 20), each kernel's device time
+     alone (torch.profiler) beside its bound, and a depthwise F.conv1d
+     timed beside pfb_branch as its library yardstick.
   4. bank4 path: `python -m pysdr_tpu_torch`'s entry point at the full
      width of the 4-RX bank (8 MHz, AM/NFM/USB/CW, 24576-sample audio
      blocks) from the synth source into wavs; its kernels (the scans)
@@ -45,8 +49,10 @@ Phases, each of which must pass (exit 1 on the first failure):
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches summed over the paths' runs (phases 4, 7
 and 9, each with the counts set to 0 before it), their largest error
-over phase 3's shapes and their times at their first shape there.
-Imports no JAX, and of this repository only pysdr_tpu_torch.
+over phase 3's shapes, and at their first shape there their times, bound
+and library time (or null). Imports no JAX, and of this repository only
+pysdr_tpu_torch, which imports neither: the run fails if any jax or
+pysdr_tpu module was loaded.
 """
 
 from __future__ import annotations
@@ -68,18 +74,32 @@ CHAN64 = ["--channelize", "64", "--fs", "12.288", "--fc", "100.0",
           "--block", "12288", "--wire", "i8", "--audio-wire", "i8",
           "--squelch", "10"]
 RTTY = ["--no-loop", "--fc", "100.0", "--mode", "RTTY", "--rtty", "0"]
-# the first shape of each kernel is the one its kernels-line time is
+# the first shape of each kernel is the one its kernels-line times are
 # taken at: chan64's for the scans and the PFB, then bank4's (and
-# pfb_branch on the f32 wire); rtty_scores' (F, nfft, C, T) are the
+# pfb_branch on the f32 wire); linrec's `a` as the main path gives it (a
+# per-column constant at stride 0 along n for the 4- and 2-column passes,
+# a python scalar for the AGC), then edge shapes around its 512-sample
+# tile with a dense `a`; the latch's edge shapes, "quiet" with commands
+# only near a row's ends; rtty_scores' (F, nfft, C, T) are the
 # 100-channel decoder's at 96 kHz without and with its soft tail, and
 # one channel
-KERNEL_SHAPES = {"linrec": [(64, 12288, 4), (64, 12288, 2), (64, 192, 1),
-                            (4, 24576, 4), (4, 24576, 2), (4, 384, 1)],
-                 "sr_latch": [(64, 12288), (4, 24576)],
+KERNEL_SHAPES = {"linrec": [(64, 12288, 4, "columns"), (64, 12288, 2, "columns"),
+                            (64, 192, 1, "scalar"), (4, 24576, 4, "columns"),
+                            (4, 24576, 2, "columns"), (4, 384, 1, "scalar"),
+                            (3, 511, 4, "dense"), (3, 512, 2, "dense"),
+                            (3, 513, 1, "dense"), (2, 1, 4, "columns"),
+                            (2, 200000, 4, "dense")],
+                 "sr_latch": [(64, 12288, ""), (4, 24576, ""), (3, 511, ""),
+                              (3, 512, ""), (3, 513, ""), (2, 1, ""),
+                              (2, 200000, "quiet")],
                  "pfb_branch": [(49152, 64, 12, "i8"),
                                 (49152, 64, 12, "f32")],
                  "rtty_scores": [(43, 4096, 100, 64), (43, 4096, 100, 0),
                                  (43, 4096, 1, 64)]}
+# the least time the card could take: H100 SXM HBM3 at its 700 W limit,
+# float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 BANK4_KERNELS = ("linrec", "sr_latch")
 CHAN64_KERNELS = ("linrec", "sr_latch", "pfb_branch")
 # the 100-station layout of tests/test_rtty.py: station i at
@@ -121,21 +141,27 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def device_us(fn, name, reps=20):
+def device_us(fn, name, reps=20, tries=5):
     """Mean device time in us of the kernel `{name}_kernel` over reps
-    calls of fn(), from torch.profiler (no host cost)."""
+    calls of fn(), from torch.profiler (no host cost). The profiler now
+    and then drops a short window's kernels, or records them with no
+    time: such a window is taken again, up to `tries` times."""
     import torch
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if f"{name}_kernel" in e.key
-          and e.device_type == torch.autograd.DeviceType.CUDA]
-    check(ev, f"torch.profiler saw no {name}_kernel")
-    return (sum(e.self_device_time_total for e in ev)
-            / sum(e.count for e in ev))
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if f"{name}_kernel" in e.key
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+        us = (sum(e.self_device_time_total for e in ev)
+              / max(1, sum(e.count for e in ev)))
+        if us > 0:
+            return us
+    raise SmokeFailure(f"torch.profiler recorded no device time of "
+                       f"{name}_kernel in {tries} windows")
 
 
 def wav_peak(path, skip_frac=1 / 3):
@@ -153,39 +179,78 @@ def wav_peak(path, skip_frac=1 / 3):
         sp[pk] / max(np.median(sp[5:]), 1e-12)))
 
 
+def bound(n_bytes, n_ops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the float32 rate."""
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def record(out, name, shape, err, ms, plain, us, bnd, lib_ms=None):
+    """One phase-3 result; prints the kernel's device time beside its
+    bound."""
+    print(f"{name} {shape}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
+          f"plain {plain:.4f} ms  device {us:.3f} us  bound "
+          f"{bnd[0] * 1e3:.3f} us ({bnd[1]})"
+          + ("" if lib_ms is None else f"  library {lib_ms:.4f} ms"),
+          flush=True)
+    out.setdefault(name, []).append({
+        "shape": shape, "err": err, "ms": ms, "plain_ms": plain,
+        "device_us": us, "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": lib_ms})
+
+
 def kernel_phase(device):
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from pysdr_tpu_torch.kernels import scan
     from pysdr_tpu_torch.ops import scanops
 
     rng = np.random.default_rng(0)
     out = {}
-    for shape in KERNEL_SHAPES["linrec"]:
-        a = torch.from_numpy(rng.uniform(0.9, 1.0, shape)
-                             .astype(np.float32)).to(device)
+    for bn, n, k, kind in KERNEL_SHAPES["linrec"]:
+        shape = (bn, n, k)
         b = torch.from_numpy(rng.uniform(0.0, 1.0, shape)
                              .astype(np.float32)).to(device)
-        yp = torch.from_numpy(rng.uniform(0.0, 1.0, (shape[0], shape[2]))
+        yp = torch.from_numpy(rng.uniform(0.0, 1.0, (bn, k))
                               .astype(np.float32)).to(device)
+        if kind == "scalar":
+            a, a_ref, a_bytes = 0.9921875, torch.full_like(b, 0.9921875), 0
+        elif kind == "columns":
+            a = torch.from_numpy(rng.uniform(0.9, 1.0, k).astype(np.float32)) \
+                .to(device).expand(shape)
+            a_ref, a_bytes = a, 4 * k
+        else:
+            a = torch.from_numpy(rng.uniform(0.9, 1.0, shape)
+                                 .astype(np.float32)).to(device)
+            a_ref, a_bytes = a, a.numel() * 4
         y, last = scan.linrec(a, b, yp)
-        y_ref, l_ref = scanops.linrec_ref(a, b, yp)
+        y_ref, l_ref = scanops.linrec_ref(a_ref, b, yp)
         torch.cuda.synchronize()
         err = max((y - y_ref).abs().max().item(),
                   (last - l_ref).abs().max().item())
         rel = err / y_ref.abs().max().item()
         ms = cuda_ms(lambda: scan.linrec(a, b, yp))
-        plain = cuda_ms(lambda: scanops.linrec_ref(a, b, yp))
-        print(f"linrec {shape}: max_abs_err {err:.3e} rel {rel:.3e}  "
-              f"kernel {ms:.4f} ms  plain {plain:.4f} ms", flush=True)
-        # f32 reassociation over 24576 steps: a different summation order
-        check(rel <= 1e-4, f"linrec {shape} rel err {rel:.3e} > 1e-4")
-        out.setdefault("linrec", []).append((shape, err, ms, plain))
-    for shape in KERNEL_SHAPES["sr_latch"]:
-        s = torch.from_numpy(rng.random(shape) < 0.01).to(device)
-        r = torch.from_numpy(rng.random(shape) < 0.01).to(device)
-        gp = torch.from_numpy((rng.random(shape[0]) < 0.5)
+        plain = cuda_ms(lambda: scanops.linrec_ref(a_ref, b, yp))
+        us = device_us(lambda: scan.linrec(a, b, yp), "linrec")
+        # b in, y out, y_prev in, y_last out; one multiply-add a sample
+        bnd = bound(8 * b.numel() + 8 * yp.numel() + a_bytes,
+                    2 * b.numel())
+        record(out, "linrec", shape + (kind,), err, ms, plain, us, bnd)
+        print(f"  rel {rel:.3e}", flush=True)
+        # f32 reassociation over up to 2e5 steps: a different order
+        check(rel <= 1e-4, f"linrec {shape} {kind} rel err {rel:.3e} > 1e-4")
+    for bn, n, kind in KERNEL_SHAPES["sr_latch"]:
+        shape = (bn, n)
+        s = rng.random(shape) < 0.01
+        r = rng.random(shape) < 0.01
+        if kind == "quiet":
+            s[:, 37:-5] = r[:, 37:-5] = False
+            s[0] = r[0] = False
+        s, r = (torch.from_numpy(x).to(device) for x in (s, r))
+        gp = torch.from_numpy((rng.random(bn) < 0.5)
                               .astype(np.float32)).to(device)
         g, last = scan.sr_latch(s, r, gp)
         g_ref, l_ref = scanops.sr_latch_ref(s, r, gp)
@@ -194,10 +259,12 @@ def kernel_phase(device):
                   (last - l_ref).abs().max().item())
         ms = cuda_ms(lambda: scan.sr_latch(s, r, gp))
         plain = cuda_ms(lambda: scanops.sr_latch_ref(s, r, gp))
-        print(f"sr_latch {shape}: max_abs_err {err:.3e}  kernel {ms:.4f} ms"
-              f"  plain {plain:.4f} ms", flush=True)
+        us = device_us(lambda: scan.sr_latch(s, r, gp), "sr_latch")
+        # two command bytes in, a float gate out, g_prev and gate_last
+        bnd = bound(6 * s.numel() + 8 * bn, s.numel())
+        record(out, "sr_latch", shape + ((kind,) if kind else ()), err, ms,
+               plain, us, bnd)
         check(err == 0.0, f"sr_latch {shape} differs from its plain twin")
-        out.setdefault("sr_latch", []).append((shape, err, ms, plain))
     from pysdr_tpu_torch.kernels import pfb
     from pysdr_tpu_torch.ops import channelizer, cplx
     for m, nch, k, wire in KERNEL_SHAPES["pfb_branch"]:
@@ -223,15 +290,34 @@ def kernel_phase(device):
         plain = cuda_ms(lambda: channelizer.branch_filter_ref(
             torch.view_as_complex(cplx.dequantize(xw).contiguous()), hist,
             taps))
+        us = device_us(lambda: pfb.pfb_branch(xw, hist, taps), "pfb_branch")
+        # the library's yardstick, which the port never calls: the same
+        # filter as a depthwise convolution, one channel per branch and
+        # re/im, over [hist | x] laid out channels-first beforehand
+        xp = torch.view_as_real(torch.cat([hist, xc])).reshape(-1, nch, 2)
+        x_cf = xp.permute(1, 2, 0).reshape(1, 2 * nch, -1).contiguous()
+        w = taps.flip(1).repeat_interleave(2, 0)[:, None, :].contiguous()
+        conv = F.conv1d(x_cf, w, groups=2 * nch)
+        v_conv = torch.complex(conv[0, 0::2], conv[0, 1::2]).t()
+        torch.cuda.synchronize()
+        conv_err = (v_conv - v_ref).abs().max().item()
+        lib_ms = cuda_ms(lambda: F.conv1d(x_cf, w, groups=2 * nch))
+        # wire in, hist and taps in, v and the new hist out; a complex
+        # by real multiply-add (4 operations) per tap and output
+        bnd = bound(xw.numel() * xw.element_size() + 2 * hist.numel() * 8
+                    + taps.numel() * 4 + v.numel() * 8,
+                    4 * v.numel() * k)
         shape = (m, nch, k)
-        print(f"pfb_branch {shape} {wire}: max_abs_err {err:.3e} rel "
-              f"{rel:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms",
-              flush=True)
+        record(out, "pfb_branch", shape + (wire,), err, ms, plain, us, bnd,
+               lib_ms)
+        print(f"  rel {rel:.3e}; F.conv1d (groups {2 * nch}) max_abs_err "
+              f"{conv_err:.3e} against the twin", flush=True)
         # fused multiply-adds against separate ones, 12 terms
         check(rel <= 1e-5, f"pfb_branch {shape} {wire} rel err {rel:.3e}")
         check(torch.equal(nh, nh_ref), f"pfb_branch {shape} {wire}: new "
               "history differs from its plain twin")
-        out.setdefault("pfb_branch", []).append((shape, err, ms, plain))
+        check(conv_err <= 1e-4 * v_ref.abs().max().item(),
+              f"F.conv1d yardstick computes another function ({conv_err})")
     from pysdr_tpu_torch.kernels import rtty as krtty
     from pysdr_tpu_torch.models import rtty
     design = rtty.RTTYDesign(fs=RTTY_FS)
@@ -242,6 +328,7 @@ def kernel_phase(device):
         mark = rng.integers(0, nfft, nch).astype(np.int32)
         mark[0] = 2                    # its space bin wraps below 0
         space = (mark - design.shift_bins) % nfft
+        bins = len(np.unique(np.concatenate([mark, space])))
         mark, space = (torch.from_numpy(b.astype(np.int32)).to(device)
                        for b in (mark, space))
         tail = torch.from_numpy(rng.uniform(-1.0, 1.0, (t_rows, nch))
@@ -258,12 +345,15 @@ def kernel_phase(device):
         ms = cuda_ms(lambda: krtty.rtty_scores(*args))
         plain = cuda_ms(lambda: rtty.rtty_scores_ref(*args))
         us = device_us(lambda: krtty.rtty_scores(*args), "rtty_scores")
-        print(f"rtty_scores {shape}: soft bit-equal, scores max_abs_err "
-              f"{err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-              f"(kernel device time alone {us:.3f} us)", flush=True)
+        # the magnitudes of the mark/space bins this data reads, the bins,
+        # the tail, the templates in; soft rows and scores out; 3
+        # operations a soft bit, a multiply-add per template tap and score
+        bnd = bound(4 * f * bins + 8 * nch + 4 * tail.numel()
+                    + 4 * tmpl.numel() + 4 * soft.numel() + 4 * sc.numel(),
+                    3 * f * nch + 2 * sc.numel() * tmpl.shape[1])
+        record(out, "rtty_scores", shape, err, ms, plain, us, bnd)
         # 32 fused multiply-adds of terms <= 1 against the twin's matmul
         check(err <= 1e-4, f"rtty_scores {shape} scores err {err:.3e}")
-        out.setdefault("rtty_scores", []).append((shape, err, ms, plain))
     return out
 
 
@@ -751,15 +841,27 @@ def run():
         phase("9 rtty path")
         add(rtty_phase(tmp))
 
+    # of this repository, only the port ran: no JAX, no pysdr_tpu module
+    jaxish = sorted(m for m in sys.modules if m in ("jax", "pysdr_tpu")
+                    or m.startswith(("jax.", "jaxlib", "pysdr_tpu.")))
+    print(f"modules of jax or pysdr_tpu loaded: {jaxish}", flush=True)
+    check(not jaxish, f"the run loaded {jaxish}")
+
     rows = []
     for fn, source, replaces in kernels.KERNELS:
         name = fn.__name__
         check(launches[name] > 0, f"kernel {name} launched on no path")
         res = kres[name]
+        first = res[0]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": max(r[1] for r in res),
-                     "ms": res[0][2], "plain_ms": res[0][3]})
+                     "max_abs_err": max(r["err"] for r in res),
+                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "bound_ms": first["bound_ms"],
+                     "bound_by": first["bound_by"],
+                     "library_ms": first["library_ms"],
+                     "device_us": first["device_us"],
+                     "bound_us": first["bound_ms"] * 1e3})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

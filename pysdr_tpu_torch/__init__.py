@@ -9,17 +9,22 @@ mode/squelch/AGC held as data) into wav sinks.
 
 Layout (mirrors pysdr_tpu):
   ops/       torch DSP ops: wire formats, exact NCO, mix+resample,
-             overlap-save FIR, scans, AGC, demod
+             overlap-save FIR, scans, AGC, demod, channelizer, spectrum;
+             ops/fir.py designs the filters
   kernels/   hand-written CUDA kernels (csrc/*.cu), their nvcc build and
              ctypes wrappers
-  models/    ReceiverBank (nn.Module)
-  runtime/   the streaming executive
+  models/    ReceiverBank, ChannelizerBank, display, RTTY decoder
+  runtime/   the streaming executive, sinks, watchdog, control servers,
+             web viewer, C++ replay streamer (native/sdrio.cpp)
+  io/        .dat container, synth source, rtl_tcp client
+  config.py, rates.py, tables.py   receiver configs, rate plans, menus
   convert.py carry JAX-bank state, params and constants across
   app.py     `python -m pysdr_tpu_torch`
 
-The jax-free host modules of pysdr_tpu (config, tables, rates, ops.fir,
-io.*, runtime.{audio,ringbuffer,profiler,watchdog}, app's parser) are
-imported, not copied. Nothing here imports jax.
+The host modules (config, tables, rates, ops.fir, io.synth, io.rtltcp,
+every runtime module but the executive, the app's parser and source
+picker) are the port's own copies of pysdr_tpu's, each naming its
+original. Nothing here imports jax or pysdr_tpu.
 """
 
 __version__ = "0.1.0"

@@ -2,19 +2,22 @@
 sinks, recorders, control servers, hopper, RTTY decoder, display and web
 viewer, on the card (counterpart of pysdr_tpu/app.py).
 
-The parser, build_config and source picker are pysdr_tpu.app's own
-(jax-free at import), plus `--device {cuda,cpu}`. `--channelize N` builds
-the polyphase channelizer bank instead of the receiver bank. The host
-services (hamlib, UDP, rig follow, hopper, fldigi, memmon, presets, the
-wav/fifo/aux sinks, rtl_tcp and the web viewer) are the JAX package's
-runtime and io modules, reused as they are; the .dat recorders and the
-channelizer's replay reader are the port's io.datfile. The flags
-of features not ported yet (`--mesh`, `--jax-trace`) exit 2 with a
-message instead of being ignored.
+build_parser, _fs_out_hz, _expand_digi_layout, build_config,
+_rtl_tcp_source and build_source are the port's own copies of
+pysdr_tpu/app.py's (every flag and default of its parser, plus
+`--device {cuda,cpu}`). `--channelize N` builds the polyphase
+channelizer bank instead of the receiver bank. The host services
+(hamlib, UDP, rig follow, hopper, fldigi, memmon, presets, the
+wav/fifo/aux sinks, rtl_tcp, the C++ replay streamer and the web viewer)
+are the port's copies of the JAX package's runtime and io modules: the
+port imports nothing of the JAX package. The flags of features not
+ported yet (`--mesh`, `--jax-trace`) exit 2 with a message instead of
+being ignored.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import sys
@@ -22,25 +25,451 @@ import time
 
 import numpy as np
 
-from pysdr_tpu import tables
-from pysdr_tpu.app import (_fs_out_hz, _rtl_tcp_source, build_config,
-                           build_source)
-from pysdr_tpu.app import build_parser as _jax_parser
+from pysdr_tpu_torch import config as cfg_mod
+from pysdr_tpu_torch import tables
+from pysdr_tpu_torch.tables import Mode
 
 # flags of pysdr_tpu's CLI whose feature is not in this package yet
 UNPORTED = ("mesh", "jax_trace")
 # features the channelizer bank does not carry (pysdr_tpu.app's list)
 NOT_WITH_CHANNELIZE = ("rtty", "hamlib", "rig", "hop", "hop_schedule")
 
+MAX_RX = 64     # reference clamps at 6 (params.py:33); the vmapped bank
+                # has no such structural limit — 64 is a sanity rail.
 
-def build_parser():
-    ap = _jax_parser()
-    ap.prog = "pysdr_tpu_torch"
-    ap.description = "Multi-channel SDR receiver (headless), PyTorch/CUDA"
+
+# --------------------------------------------------------------------------
+# CLI (reference params.py:45-190)
+# --------------------------------------------------------------------------
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="pysdr_tpu_torch",
+        description="Multi-channel SDR receiver (headless), PyTorch/CUDA")
+    # -- channels (reference -fc nargs='*', -mode; params.py:76-77) --
+    ap.add_argument("--fc", type=float, nargs="*", default=None,
+                    help="per-RX center freqs in MHz (up to %d; "
+                         "default 0.6)" % MAX_RX)
+    ap.add_argument("--mode", type=str, default="AM",
+                    help="demod mode for all RXs (AM/AM-Synch/USB/LSB/CW/"
+                         "IQ/WFM/WFM2/NFM/RTTY)")
+    ap.add_argument("--modes", type=str, nargs="*", default=None,
+                    help="per-RX mode list (overrides --mode)")
+    ap.add_argument("--ft8", type=str, nargs="*", default=None,
+                    metavar="BAND",
+                    help="one-step FT8 RX layout expansion (reference "
+                         "-ft8, params.py:254-267): with no BAND, "
+                         "append a USB sub-RX on the first RX's band "
+                         "FT8 slot; with BANDs (e.g. 40m 20m), one USB "
+                         "RX per band's FT8 slot — all slots must fit "
+                         "the device passband. Without --fc the slots "
+                         "ARE the layout")
+    ap.add_argument("--ft4", type=str, nargs="*", default=None,
+                    metavar="BAND",
+                    help="FT4 layout expansion (reference -ft4 "
+                         "expand_ft4, utils.py:442-453): with no BAND, "
+                         "append each RX's band FT4 slot (doubling the "
+                         "layout); with BANDs, one USB RX per band's "
+                         "FT4 slot")
+    ap.add_argument("--ft44", action="store_true",
+                    help="append one FT4 sub-RX for the first RX's "
+                         "band (reference -ft44)")
+    ap.add_argument("--video-bw", type=float, default=0.0,
+                    help="pre-demod filter BW in kHz (0 = Max)")
+    ap.add_argument("--af-bw", type=float, default=0.0,
+                    help="audio filter BW in kHz (0 = mode default)")
+    ap.add_argument("--af-gain", type=float, default=1.0)
+    ap.add_argument("--bfo", type=float, default=None, metavar="HZ",
+                    help="CW beat pitch (reference -bfo; default %g Hz)"
+                    % tables.CW_BFO_HZ)
+    ap.add_argument("--nfilt", type=int, default=None, metavar="TAPS",
+                    help="AF filter length (reference -nfilt; default "
+                         "256)")
+    ap.add_argument("--squelch", type=float, default=-150.0,
+                    help="squelch threshold dB (default off)")
+    ap.add_argument("--no-agc", action="store_true")
+    ap.add_argument("--auto-mute", action="store_true",
+                    help="mute on strong signals (reference -auto_mute, "
+                         "receiver.py:237-245)")
+    ap.add_argument("--auto-mute-db", type=float, default=-10.0,
+                    help="auto-mute baseband power threshold (dBFS)")
+    ap.add_argument("--mute", type=int, nargs="*", default=[],
+                    metavar="RX", help="start with these RXs muted")
+    ap.add_argument("--src", type=int, nargs="*", default=None,
+                    help="per-RX sample-source chain (reference -src, "
+                         "receiver.py:825-835): RX i with src j >= 0 "
+                         "derives its NCO offset from RX j's dial; -1 = "
+                         "normal (device-center) derivation")
+    # -- rates (reference -fs MHz / -fsout kHz; params.py:128-131) --
+    ap.add_argument("--fs", type=float, default=2.048,
+                    help="RF sample rate in MHz")
+    ap.add_argument("--fs-out", type=float, default=None,
+                    help="audio rate in kHz (48/96/192; default 48, or "
+                         "192 when any RX runs WFM/WFM2 — the broadcast "
+                         "FM signal needs the full ~200 kHz before the "
+                         "discriminator, reference params.py:400-404)")
+    ap.add_argument("--foffset", type=float, default=None,
+                    help="tuner offset in kHz (default: auto-center, "
+                         "params.py:311-315)")
+    ap.add_argument("--transverter", type=float, default=0.0, metavar="MHZ",
+                    help="up/down-converter offset ahead of the SDR in "
+                         "MHz: the device tunes dial + offset (the "
+                         "reference's +125 MHz Ham-It-Up shift, "
+                         "gui.py:1940-1944)")
+    ap.add_argument("--block", type=int, default=16384,
+                    help="audio samples per device block")
+    ap.add_argument("--channelize", type=int, default=None, metavar="N",
+                    help="split the passband into N uniform channels with "
+                         "the polyphase channelizer and demod every one "
+                         "(the 64+-channel generalization of the "
+                         "reference's MAX_RX=6 bank, params.py:33)")
+    # -- source (reference -replay / -fake; params.py:51-56) --
+    ap.add_argument("--replay", type=str, nargs="+", default=None,
+                    metavar=("FILE", "START_SEC"),
+                    help="replay a recorded .dat file (optional start sec)")
+    ap.add_argument("--no-native", action="store_true",
+                    help="force the Python replay reader even when the "
+                         "C++ streamer (native/sdrio.cpp) is built")
+    ap.add_argument("--no-loop", action="store_true",
+                    help="stop at end of replay file instead of looping")
+    ap.add_argument("--rtl-tcp", type=str, default=None,
+                    metavar="HOST:PORT",
+                    help="stream live IQ from an rtl_tcp server (every "
+                         "RTL-SDR ships one; the network path to real "
+                         "hardware from a USB-less host). The device "
+                         "tunes to the derived SDR center at startup "
+                         "and RXs tune within that passband; "
+                         "--rf-gain/--ppm program the dongle")
+    ap.add_argument("--rtl-tcp-retries", type=int, default=5,
+                    metavar="N",
+                    help="auto-reconnect a dropped/stalled rtl_tcp "
+                         "session with up to N attempts per outage, "
+                         "re-programming the device from its model "
+                         "state (reference watchdog.py:96-123 network "
+                         "retry discipline); 0 fails loudly instead")
+    ap.add_argument("--synth-noise", type=float, default=0.001,
+                    help="noise RMS for the synthetic source (-fake "
+                         "equivalent, utils.py:71-273)")
+    ap.add_argument("--rf-gain", type=float, default=None, metavar="DB",
+                    help="front-end RF gain applied by the source "
+                         "(reference setupSDR gain staging, "
+                         "utils.py:292-353). For --rtl-tcp, omitting it "
+                         "selects the tuner's hardware AGC; an explicit "
+                         "value — including 0 — pins manual gain")
+    ap.add_argument("--ppm", type=float, default=0.0,
+                    help="front-end frequency-correction error in ppm "
+                         "(reference PPM correction, utils.py:292-353)")
+    ap.add_argument("--ant", type=str, default=None,
+                    help="front-end antenna port select (reference -ant "
+                         "A/B/Hi-Z, utils.py:292-353)")
+    # -- run control --
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="stop after N device blocks")
+    ap.add_argument("--duration", type=float, default=None,
+                    help="stop after N seconds of stream time")
+    ap.add_argument("--realtime", action="store_true",
+                    help="pace to the sample clock (default: free-run)")
+    ap.add_argument("--mesh", type=str, default=None, metavar="S,C",
+                    help="process across a device mesh: S stream (time) "
+                         "shards x C channel shards (jax.sharding.Mesh "
+                         "over the first S*C devices; state-continuous "
+                         "halo exchange, parallel/adapter.py). '1,8' = "
+                         "pure channel sharding, '4,1' = pure stream "
+                         "parallelism, '2,4' = both")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="disable the source read-ahead thread (host "
+                         "read + wire quantize + device-put issue run "
+                         "inline in the hot loop instead of overlapping "
+                         "the in-flight transfers)")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="device blocks in flight before draining the "
+                         "oldest (deeper hides per-block transport "
+                         "latency at the cost of depth-1 blocks of "
+                         "audio latency)")
+    ap.add_argument("--wire", choices=["f32", "i16", "i8"], default="f32",
+                    help="host->device RF block format: raw CS16/CS8 "
+                         "sample pairs ship 2x/4x fewer bytes and are "
+                         "dequantized on device (i16 is lossless for any "
+                         "real SDR front-end; f32 = exact replay)")
+    ap.add_argument("--audio-wire", choices=["f32", "i16", "i8"],
+                    default="f32",
+                    help="device->host audio format: i16 halves the "
+                         "return transport (~78 dB SNR), i8 quarters it "
+                         "(mu-law, ~37 dB — monitoring quality; the "
+                         "audio return is the dominant byte stream for "
+                         "many-channel banks)")
+    # -- recording taps (reference -save_iq/-save_demod; params.py:136-141)
+    ap.add_argument("--save-iq", action="store_true",
+                    help="record raw RF IQ to a timestamped .dat")
+    ap.add_argument("--save-iq-dtype", default="complex64",
+                    choices=["complex64", "int16", "int8"],
+                    help="recording sample format: int16/int8 store "
+                         "CS16/CS8 pairs at 1/2 / 1/4 the bytes "
+                         "(lossless for real 8/14-bit front-ends); both "
+                         "the Python reader and the C++ streamer replay "
+                         "them")
+    ap.add_argument("--save-baseband", action="store_true",
+                    help="record per-RX post-mix/decimate baseband to a "
+                         "timestamped .dat (reference -save_baseband, "
+                         "params.py:136-141; taps receiver.py:292-297)")
+    ap.add_argument("--save-demod", action="store_true",
+                    help="record demod audio to a timestamped .dat")
+    ap.add_argument("--save-dir", type=str, default=".")
+    ap.add_argument("--wav", type=str, default=None, metavar="PREFIX",
+                    help="write per-RX audio to PREFIX_rxN.wav")
+    ap.add_argument("--stereo", action="store_true",
+                    help="pack RX pairs into one stereo player each "
+                         "(RX i in L, RX i+1 in R — the reference's "
+                         "scheme-2 routing, receiver.py:158-189)")
+    ap.add_argument("--fifo", type=str, default=None, metavar="PATH",
+                    help="also route RX0 audio as raw s16le PCM into a "
+                         "named pipe for other apps (the reference's "
+                         "PulseAudio loopback, start_loopback:1-100)")
+    ap.add_argument("--delay", type=int, default=16 * 1024,
+                    metavar="SAMPLES",
+                    help="audio samples buffered before playback starts "
+                         "(reference -delay / P.DELAY, params.py:70-71)")
+    ap.add_argument("--aux-wav", type=str, default=None, metavar="PATH",
+                    help="aux speaker path: RX0 audio through the "
+                         "800-1300 Hz speech bandpass to its own wav "
+                         "(reference receiver.py:214-221)")
+    # -- control plane (reference pySDR.py:139-156; udp.py; hopper.py) --
+    ap.add_argument("--hamlib", action="store_true",
+                    help="start one hamlib TCP server per RX (ports "
+                         "4575+i, pySDR.py:139-156)")
+    ap.add_argument("--hamlib-port", type=int, default=None)
+    ap.add_argument("--udp-port", type=int, default=None,
+                    help="start the bandmap/keyer UDP server")
+    ap.add_argument("--rig", type=str, default=None, metavar="HOST:PORT",
+                    help="follow an external rigctld (follow-freq loop, "
+                         "gui.py:1402-1483)")
+    ap.add_argument("--hop", type=float, nargs="*", default=None,
+                    help="frequency-hop list in MHz (hopper.py:51-199)")
+    ap.add_argument("--hop-schedule", type=str, default=None,
+                    metavar="FILE",
+                    help="hour-keyed hop schedule file ('H[-H]: entries' "
+                         "per line; the reference presets 'Hops' sheet "
+                         "keyed by hour, hopper.py:74-111); entries are "
+                         "MHz numbers or slots like 40m:FT8")
+    ap.add_argument("--dwell", type=float, default=15.0,
+                    help="hop dwell seconds (WSJT 15 s slots)")
+    # -- decoders --
+    ap.add_argument("--rtty", type=int, default=None, metavar="RX",
+                    help="run the wideband RTTY decoder on this RX's "
+                         "baseband (rtty.py)")
+    # -- display (headless UpdatePSD; pySDR.py:252-256) --
+    ap.add_argument("--psd", action="store_true",
+                    help="compute RF/AF PSD + waterfall frames")
+    ap.add_argument("--bb", action="store_true",
+                    help="also compute per-RX BASEBAND PSD/waterfall "
+                         "frames (the reference's BB domain + show-BB "
+                         "toggle, gui.py:121-221; implies --psd)")
+    ap.add_argument("--psd-every", type=int, default=8,
+                    help="update displays every N blocks")
+    ap.add_argument("--pan-dr", type=float, default=60.0, metavar="DB",
+                    help="pan-adaptor dynamic-range clamp (reference "
+                         "-pan_dr; also live in the viewer)")
+    ap.add_argument("--png-dir", type=str, default=None,
+                    help="export waterfall PNGs here on exit")
+    ap.add_argument("--web", type=int, default=None, metavar="PORT",
+                    help="serve the live waterfall + click-to-tune viewer "
+                         "on this port (implies --psd; 0 = ephemeral)")
+    # -- presets (reference presets.xls tabs; gui.py:408-435) --
+    ap.add_argument("--preset", type=str, default=None,
+                    help="tune RX0 to a named preset station")
+    ap.add_argument("--presets-file", type=str, default=None)
+    ap.add_argument("--list-presets", action="store_true")
+    ap.add_argument("--fldigi-ports", type=int, nargs="*", default=None,
+                    help="XML-RPC ports of fldigi/keyer instances to keep "
+                         "serial counters in sync (watchdog.py:382-414)")
+    # -- diagnostics --
+    ap.add_argument("--memmon", type=str, nargs="?", default=None,
+                    const="/tmp/SDR_MEMORY.TXT", metavar="PATH",
+                    help="log RSS snapshots (reference Memory_Monitor, "
+                         "pySDR.py:224-225)")
+    ap.add_argument("--watchdog-log", type=str, nargs="?", default=None,
+                    const="/tmp/LOG2.TXT", metavar="PATH",
+                    help="write the watchdog latency CSV (reference "
+                         "/tmp/LOG2.TXT, watchdog.py:176-227); analyze "
+                         "with `python -m pysdr_tpu.latency PATH`")
+    ap.add_argument("--internals", type=str, default=None, metavar="NPZ",
+                    help="dump filter banks for cross-validation "
+                         "(internals.mat harness, receiver.py:864-874)")
+    ap.add_argument("--profile", action="store_true",
+                    help="print per-block timing vs the frame budget "
+                         "(profiler.py:27-46)")
+    ap.add_argument("--jax-trace", type=str, default=None, metavar="DIR",
+                    help="capture a jax.profiler trace of the run into "
+                         "DIR (open with TensorBoard / Perfetto; the "
+                         "trace hook points the reference comments out, "
+                         "pySDR.py:170-171)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the DSP runs (default cuda; never falls "
                          "back to the CPU)")
     return ap
+
+
+def _fs_out_hz(args, modes) -> float:
+    """Audio rate: explicit --fs-out wins; otherwise 192 kHz when any
+    RX runs broadcast FM (the reference's per-mode srate selection,
+    params.py:400-404), else 48 kHz."""
+    if args.fs_out is not None:
+        return args.fs_out * 1e3
+    if any(m in (Mode.WFM, Mode.WFM2) for m in modes):
+        return 192e3
+    return 48e3
+
+
+def _expand_digi_layout(args, fcs_mhz: list, mode_names: list):
+    """One-flag FT8/FT4 RX layout expansion (reference params.py:254-267:
+    -ft8 grows a single RX into main + FT8 sub-RX, -ft4 doubles the
+    list with each band's FT4 slot via expand_ft4 utils.py:442-453,
+    -ft44 appends one FT4 sub-RX). Band arguments generalize this:
+    --ft8 40m 20m appends one USB RX per band slot; with no --fc given
+    the named slots ARE the layout."""
+    from pysdr_tpu_torch.runtime.hopper import BANDS_KHZ, freq2band
+
+    def slot_mhz(band: str, name: str) -> float:
+        try:
+            return BANDS_KHZ[band][name] / 1e3
+        except KeyError:
+            raise ValueError(
+                f"unknown band {band!r} for --{name.lower()} "
+                f"(choose from {', '.join(BANDS_KHZ)})") from None
+
+    def band_of(fc_mhz: float) -> str:
+        b = freq2band(fc_mhz * 1e6)
+        if b == "?":
+            raise ValueError(
+                f"{fc_mhz} MHz is not inside a ham band; give explicit "
+                "bands to --ft8/--ft4 (e.g. --ft8 40m)")
+        return b
+
+    fcs, modes = list(fcs_mhz), list(mode_names)
+    if args.ft8 is not None:
+        if args.ft8:                       # bands listed
+            if args.fc is None:
+                fcs, modes = [], []        # the slots are the layout
+            for b in args.ft8:
+                fcs.append(slot_mhz(b, "FT8"))
+                modes.append("USB")
+        else:                              # main RX + FT8 sub-RX
+            fcs.append(slot_mhz(band_of(fcs[0]), "FT8"))
+            modes.append("USB")
+    if args.ft4 is not None:
+        if args.ft4:
+            if args.fc is None and args.ft8 is None:
+                fcs, modes = [], []
+            for b in args.ft4:
+                fcs.append(slot_mhz(b, "FT4"))
+                modes.append("USB")
+        else:                              # reference expand_ft4
+            for fc in list(fcs):
+                fcs.append(slot_mhz(band_of(fc), "FT4"))
+                modes.append("USB")
+    if args.ft44:
+        fcs.append(slot_mhz(band_of(fcs[0]), "FT4"))
+        modes.append("USB")
+    return fcs, modes
+
+
+def build_config(args) -> cfg_mod.PipelineConfig:
+    fcs_mhz = list(args.fc if args.fc is not None else [0.6])
+    mode_names = list(args.modes) if args.modes \
+        else [args.mode] * len(fcs_mhz)
+    if len(mode_names) < len(fcs_mhz):
+        mode_names += [mode_names[-1]] * (len(fcs_mhz) - len(mode_names))
+    if args.ft8 is not None or args.ft4 is not None or args.ft44:
+        fcs_mhz, mode_names = _expand_digi_layout(args, fcs_mhz,
+                                                  mode_names)
+    if len(fcs_mhz) > MAX_RX:
+        print(f"warning: only {MAX_RX} receivers are supported; "
+              f"dropping {len(fcs_mhz) - MAX_RX} "
+              "(reference params.py:271-277)", file=sys.stderr)
+    fcs = [f * 1e6 for f in fcs_mhz][:MAX_RX]
+    mode_names = mode_names[:MAX_RX]
+    modes = [tables.mode_from_name(m) for m in mode_names]
+    fs_in = args.fs * 1e6
+    if args.foffset is not None:
+        foff = args.foffset * 1e3
+    elif len(fcs) > 1:
+        foff = cfg_mod.auto_foffset(fcs, fs_in)
+    else:
+        foff = min(0.25 * fs_in, 120e3)   # park DC spike out of channel
+    rx_kw = {}
+    if args.bfo is not None:
+        rx_kw["bfo_hz"] = args.bfo
+    srcs = list(args.src or [])
+    srcs += [-1] * (len(fcs) - len(srcs))
+    rxs = tuple(
+        cfg_mod.ReceiverConfig(
+            fc_hz=fc, mode=m, video_bw_hz=args.video_bw * 1e3,
+            af_bw_hz=args.af_bw * 1e3, af_gain=args.af_gain,
+            agc_enabled=not args.no_agc, squelch_db=args.squelch,
+            muted=(i in set(args.mute)), auto_mute=args.auto_mute,
+            auto_mute_db=args.auto_mute_db, src=srcs[i], **rx_kw)
+        for i, (fc, m) in enumerate(zip(fcs, modes)))
+    pipe_kw = {}
+    if args.nfilt is not None:
+        pipe_kw["af_taps"] = args.nfilt
+    return cfg_mod.PipelineConfig(
+        fs_in=fs_in, fs_out=_fs_out_hz(args, modes),
+        out_block=args.block,
+        foffset_hz=foff, transverter_hz=args.transverter * 1e6,
+        receivers=rxs, **pipe_kw)
+
+
+def _rtl_tcp_source(args, fs: float, fc: float):
+    """The one place --rtl-tcp turns into a source (both the receiver
+    and channelizer paths construct through here)."""
+    from pysdr_tpu_torch.io import rtltcp
+    host, _, port = args.rtl_tcp.partition(":")
+    return rtltcp.RtlTcpSource(
+        host or "127.0.0.1", int(port or 1234), fs=fs, fc=fc,
+        gain_db=args.rf_gain, ppm=args.ppm,
+        reconnect=args.rtl_tcp_retries)
+
+
+def build_source(args, cfg: cfg_mod.PipelineConfig):
+    """Pick the source, reference-style: -replay beats -fake beats live
+    (utils.py:459-621 find_sdr_device). There is no live USB device on a
+    TPU host, so the synthetic source is the default backend."""
+    from pysdr_tpu_torch.io import datfile, synth
+    if args.replay:
+        start = float(args.replay[1]) if len(args.replay) > 1 else 0.0
+        # C++ prefetch streamer when built (the >100 Msamp/s host-feeding
+        # path, SURVEY §7 hard part 4); Python reader for seek or fallback
+        if start == 0.0 and not args.no_native:
+            from pysdr_tpu_torch.runtime import native
+            if native.available():
+                try:
+                    ns = native.NativeStreamer(args.replay[0],
+                                               loop=not args.no_loop)
+                    return ns, ns.srate, ns.fc
+                except OSError:
+                    pass   # container the C++ refuses (multi-channel /
+                           # exotic dtype): the Python reader handles it
+        rd = datfile.DatReader(args.replay[0], start_sec=start)
+        # replay restores fs/fc from the header (receiver.py:810-820)
+        return rd, rd.srate, rd.fc
+    if args.rtl_tcp:
+        src = _rtl_tcp_source(args, cfg.fs_in, cfg.sdr_center_hz)
+        return src, cfg.fs_in, cfg.sdr_center_hz
+    # synthetic passband: one station per requested channel
+    specs = []
+    for i, (rc, off) in enumerate(zip(cfg.receivers,
+                                      cfg.channel_offsets_hz())):
+        kind = {Mode.AM: "am", Mode.AM_SYNC: "am", Mode.USB: "usb",
+                Mode.LSB: "lsb", Mode.CW: "cw", Mode.NFM: "fm",
+                Mode.WFM: "fm", Mode.WFM2: "fm",
+                }.get(rc.mode, "tone")
+        specs.append(synth.SignalSpec(
+            offset_hz=off, mode=kind, amplitude=0.5,
+            audio_hz=400.0 * (i + 1)))
+    src = synth.SynthSource(specs, cfg.fs_in, noise_rms=args.synth_noise,
+                            fc=cfg.sdr_center_hz,
+                            rf_gain_db=args.rf_gain or 0.0, ppm=args.ppm)
+    return src, cfg.fs_in, cfg.sdr_center_hz
 
 
 def unported_flags(ap, args) -> list[str]:
@@ -54,8 +483,7 @@ def build_channelizer(args):
     or rtl_tcp source. fs_in must be N * (k * fs_out) for a uniform k:1
     per-channel decimation; --fc gives the passband center; --mode
     applies to every channel. Returns (bank, source, config)."""
-    from pysdr_tpu.io import synth
-    from pysdr_tpu_torch.io import datfile
+    from pysdr_tpu_torch.io import datfile, synth
     from pysdr_tpu_torch.models.channelizer_bank import (
         ChannelizerBank, ChannelizerBankConfig, ChannelSettings)
     n = int(args.channelize)
@@ -77,7 +505,7 @@ def build_channelizer(args):
         # built, else the Python reader
         start = float(args.replay[1]) if len(args.replay) > 1 else 0.0
         if start == 0.0 and not args.no_native:
-            from pysdr_tpu.runtime import native
+            from pysdr_tpu_torch.runtime import native
             if native.available():
                 try:
                     return bank, native.NativeStreamer(
@@ -105,10 +533,10 @@ class App:
     def __init__(self, args):
         import dataclasses
 
-        from pysdr_tpu.runtime.audio import (FifoSink, TeeSink, WavSink,
+        from pysdr_tpu_torch.runtime.audio import (FifoSink, TeeSink, WavSink,
                                              aux_bandpass_taps,
                                              create_players)
-        from pysdr_tpu.runtime.watchdog import PairWatchDog, WatchDog
+        from pysdr_tpu_torch.runtime.watchdog import PairWatchDog, WatchDog
         from pysdr_tpu_torch.io import datfile
         from pysdr_tpu_torch.models.receiver import ReceiverBank
         from pysdr_tpu_torch.runtime.executive import Executive
@@ -192,7 +620,7 @@ class App:
             self._aux_tail = np.zeros(len(self._aux_taps) - 1, np.float32)
         self.memmon = None
         if args.memmon:
-            from pysdr_tpu.runtime.memmon import MemoryMonitor
+            from pysdr_tpu_torch.runtime.memmon import MemoryMonitor
             self.memmon = MemoryMonitor(args.memmon)
 
         per_block = (self.display, self.rtty, self.bb_writer, self.aux_sink,
@@ -247,14 +675,14 @@ class App:
         # control plane: every surface posts block-boundary commands
         self.hamlib_servers = []
         if args.hamlib:
-            from pysdr_tpu.runtime.hamlib import (DEFAULT_BASE_PORT,
+            from pysdr_tpu_torch.runtime.hamlib import (DEFAULT_BASE_PORT,
                                                   HamlibServer)
             base = args.hamlib_port or DEFAULT_BASE_PORT
             self.hamlib_servers = [HamlibServer(self.ex, i, port=base + i)
                                    for i in range(self.bank.n_rx)]
         self.udp_server = None
         if args.udp_port is not None:
-            from pysdr_tpu.runtime.udp import UdpMsgHandler, UdpServer
+            from pysdr_tpu_torch.runtime.udp import UdpMsgHandler, UdpServer
             mode0 = (self.cfg.channels[0] if args.channelize
                      else self.cfg.receivers[0]).mode
             handler = UdpMsgHandler(executive=self.ex,
@@ -265,13 +693,13 @@ class App:
             self.udp_server = UdpServer(handler, port=args.udp_port)
         self.rig = self.follower = None
         if args.rig:
-            from pysdr_tpu.runtime.rig import RigConnection, RigFollower
+            from pysdr_tpu_torch.runtime.rig import RigConnection, RigFollower
             host, _, port = args.rig.partition(":")
             self.rig = RigConnection(host or "127.0.0.1", int(port or 4532))
             self.follower = RigFollower(self.ex, self.rig)
         self.web = None
         if args.web is not None:
-            from pysdr_tpu.runtime.webview import WebViewer
+            from pysdr_tpu_torch.runtime.webview import WebViewer
             self.web = WebViewer(
                 self.display, self.ex, port=args.web,
                 rtty_state=self._rtty_state if self.rtty else None,
@@ -283,11 +711,11 @@ class App:
         self.fldigi_sync = None
         self._fldigi_stop = None
         if args.fldigi_ports:
-            from pysdr_tpu.runtime.fldigi import CounterSync
+            from pysdr_tpu_torch.runtime.fldigi import CounterSync
             self.fldigi_sync = CounterSync(args.fldigi_ports)
         self.hopper = None
         if args.hop or args.hop_schedule:
-            from pysdr_tpu.runtime.hopper import FreqHopper, load_hop_schedule
+            from pysdr_tpu_torch.runtime.hopper import FreqHopper, load_hop_schedule
             sched = (load_hop_schedule(args.hop_schedule)
                      if args.hop_schedule else None)
             self.hopper = FreqHopper(
@@ -450,7 +878,7 @@ class App:
 def _apply_preset(args) -> bool:
     """--preset NAME tunes RX0 to the named station (pysdr_tpu.app);
     False when no preset has that name."""
-    from pysdr_tpu.runtime import presets as pre
+    from pysdr_tpu_torch.runtime import presets as pre
     plist, _ = pre.load(args.presets_file)
     match = [p for p in plist if p.name.lower() == args.preset.lower()]
     if not match:
@@ -482,7 +910,7 @@ def run_cli(argv=None):
               file=sys.stderr)
         return 2, None
     if args.list_presets:
-        from pysdr_tpu.runtime import presets as pre
+        from pysdr_tpu_torch.runtime import presets as pre
         plist, _ = pre.load(args.presets_file)
         for p in plist:
             print(f"{p.name:24s} {p.freq_hz / 1e6:12.6f} MHz "

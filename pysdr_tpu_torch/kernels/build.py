@@ -61,9 +61,12 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pysdr_linrec_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    i64, f32 = ctypes.c_longlong, ctypes.c_float
+    lib.pysdr_linrec_f32.argtypes = [ptr, f32, i64, i64, i32] + [ptr] * 4 \
+        + [i32] * 4 + [ptr] * 2 + [ctypes.c_uint, ptr]
     lib.pysdr_linrec_f32.restype = i32
-    lib.pysdr_sr_latch_u8.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.pysdr_sr_latch_u8.argtypes = [ptr] * 5 + [i32] * 3 + [ptr] * 2 \
+        + [ctypes.c_uint, ptr]
     lib.pysdr_sr_latch_u8.restype = i32
     lib.pysdr_pfb_branch.argtypes = [ptr, i32, ctypes.c_float, ptr, ptr,
                                      ptr, ptr, i32, i32, i32, ptr]

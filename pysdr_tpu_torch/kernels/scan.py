@@ -1,52 +1,171 @@
 """ctypes wrappers of the scan kernels in csrc/scan.cu.
 
-Each wrapper checks dtype, shape, contiguity and device
-(kernels.build.check_tensors) and raises on anything its kernel does not
-take, allocates the outputs with
+Each wrapper checks dtype, shape, strides and device and raises on
+anything its kernel does not take, allocates the outputs with
 torch.empty, launches on the current CUDA stream without synchronising,
 raises if the launch returned a CUDA error, and counts its launches in
 `<wrapper>.launches` (reset with kernels.reset_launch_counts). The plain
 torch twins are ops.scanops.linrec_ref / sr_latch_ref.
+
+Both kernels carry between time tiles by decoupled look-back (see
+csrc/scan.cu). Its status words and per-row tile tickets live in one
+`_Lookback` per (kernel, device, stream), kept across calls: each launch
+tags its words with a new epoch and leaves the tickets at 0, so no
+launch clears a buffer first (a memset would add an operation to every
+call); the words are zeroed only when the epoch wraps, and both grow
+when a larger shape comes.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from pysdr_tpu_torch.kernels import build
 
+# the fewest blocks a launch is given where a longer tile would leave
+# fewer: with 132 SMs, enough to keep the card's memory busy
+MIN_BLOCKS = 128
+# linrec: 64 threads per column, each scanning a run of 8 or 16 samples
+LINREC_RUNS = (16, 8)
+# sr_latch: 16 samples a lane, one or four warps a tile
+LATCH_RUN = 16
+LATCH_WARPS = (4, 1)
 
-def _threads(n: int) -> int:
-    """Threads per block: about 32 samples of serial work each, a power
-    of two in [32, 1024]."""
-    t = 32
-    while t < 1024 and t * 32 < n:
-        t *= 2
-    return t
+
+def linrec_geometry(batch: int, n: int, k: int) -> tuple[int, int, int]:
+    """(tile samples, threads per block, tiles per row) of a linrec
+    launch over `batch` rows of n samples and k columns: a block per
+    (row, tile), the longer tile where it still gives MIN_BLOCKS."""
+    for run in LINREC_RUNS:
+        tile = 64 * run
+        tiles = -(-n // tile)
+        if batch * tiles >= MIN_BLOCKS or run == LINREC_RUNS[-1]:
+            return tile, 64 * k, tiles
 
 
-def linrec(a: torch.Tensor, b: torch.Tensor, y_prev: torch.Tensor):
-    """y[i] = a[i]*y[i-1] + b[i] along axis 1. a, b float32 (B, n, k)
-    contiguous CUDA; y_prev (B, k). Returns (y (B, n, k), y_last (B, k))."""
-    if a.dim() != 3:
-        raise ValueError(f"a: expected (B, n, k), got {tuple(a.shape)}")
-    B, n, k = a.shape
-    if n < 1 or B * n * k >= 2 ** 31:
-        raise ValueError(f"linrec: unsupported shape {(B, n, k)}")
+def sr_latch_geometry(batch: int, n: int) -> tuple[int, int, int]:
+    """(tile samples, threads per block, tiles per row) of an sr_latch
+    launch, as for linrec_geometry."""
+    for warps in LATCH_WARPS:
+        tile = 32 * warps * LATCH_RUN
+        tiles = -(-n // tile)
+        if batch * tiles >= MIN_BLOCKS or warps == LATCH_WARPS[-1]:
+            return tile, 32 * warps, tiles
+
+
+class _Lookback:
+    """Status words and per-row tile tickets of one kernel on one (device,
+    stream). Each launch leaves the tickets at 0; its epoch tags the
+    words it writes. Launches on one stream run in order, so the epoch
+    stays true."""
+
+    def __init__(self, device, dtype, per_slot: int, max_epoch: int):
+        self.device = device
+        self.dtype = dtype
+        self.per_slot = per_slot
+        self.max_epoch = max_epoch
+        self.words = torch.zeros(0, dtype=dtype, device=device)
+        self.tickets = torch.zeros(0, dtype=torch.int32, device=device)
+        self.epoch = 0
+        self.lock = threading.Lock()
+
+    def claim(self, slots: int, rows: int) -> int:
+        """Room for `slots` status slots and `rows` tickets, and the
+        epoch of the next launch. Call under self.lock, and launch before
+        releasing it."""
+        if self.words.numel() < slots * self.per_slot:
+            cap = 1 << (slots * self.per_slot - 1).bit_length()
+            self.words = torch.zeros(cap, dtype=self.dtype,
+                                     device=self.device)
+        if self.tickets.numel() < rows:
+            self.tickets = torch.zeros(1 << (rows - 1).bit_length(),
+                                       dtype=torch.int32, device=self.device)
+        self.epoch += 1
+        if self.epoch > self.max_epoch:
+            self.words.zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+_lookbacks: dict = {}
+_lookbacks_lock = threading.Lock()
+
+
+def _lookback(kind: str, device: torch.device) -> _Lookback:
+    key = (kind, device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _lookbacks_lock:
+        lb = _lookbacks.get(key)
+        if lb is None:
+            # linrec: three tagged 64-bit words a slot, a 30-bit epoch;
+            # sr_latch: one byte a slot, a 5-bit epoch
+            lb = (_Lookback(device, torch.int64, 3, (1 << 30) - 1)
+                  if kind == "linrec"
+                  else _Lookback(device, torch.uint8, 1, 31))
+            _lookbacks[key] = lb
+        return lb
+
+
+def _a_layout(a, shape, device) -> tuple[int, int, int, int]:
+    """(a_mode, pointer, stride along B, stride along k) of linrec's `a`:
+    mode 0 a python scalar, 1 a tensor with stride 0 along n, or n = 1
+    (one value per row and column), 2 a contiguous tensor."""
+    if isinstance(a, (int, float)):
+        return 0, 0, 0, 0
+    if not isinstance(a, torch.Tensor):
+        raise ValueError(f"a: expected a tensor or a float, got {type(a)}")
+    if a.dtype != torch.float32:
+        raise ValueError(f"a: expected torch.float32, got {a.dtype}")
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"a: expected shape {tuple(shape)}, got "
+                         f"{tuple(a.shape)}")
+    if a.stride(1) == 0 or shape[1] == 1:
+        mode = 1
+    elif a.is_contiguous():
+        mode = 2
+    else:
+        raise ValueError("a: must be contiguous or have stride 0 along n "
+                         f"(strides {a.stride()})")
+    if a.device.type != "cuda" or a.device != device:
+        raise ValueError(f"a: expected a CUDA tensor on {device}, got "
+                         f"{a.device}")
+    return mode, a.data_ptr(), a.stride(0), a.stride(2)
+
+
+def linrec(a, b: torch.Tensor, y_prev: torch.Tensor):
+    """y[i] = a[i]*y[i-1] + b[i] along axis 1. b float32 (B, n, k)
+    contiguous CUDA, k <= 4; a a float32 tensor of b's shape, contiguous
+    or with stride 0 along n (a per-column constant, expanded: read once
+    a column, never copied), or a python float; y_prev (B, k). Returns
+    (y (B, n, k), y_last (B, k))."""
+    if b.dim() != 3:
+        raise ValueError(f"b: expected (B, n, k), got {tuple(b.shape)}")
+    B, n, k = b.shape
+    if n < 1 or k > 4 or B * n * k >= 2 ** 31:
+        raise ValueError(f"linrec: unsupported shape {(B, n, k)} "
+                         "(k <= 4 columns)")
     f32 = (torch.float32,)
-    build.check_tensors((a, "a", f32, (B, n, k)), (b, "b", f32, (B, n, k)),
+    build.check_tensors((b, "b", f32, (B, n, k)),
                         (y_prev, "y_prev", f32, (B, k)))
-    if b.device != a.device or y_prev.device != a.device:
+    if y_prev.device != b.device:
         raise ValueError("linrec: inputs on different devices")
-    y = torch.empty_like(a)
-    y_last = torch.empty((B, k), dtype=torch.float32, device=a.device)
+    a_mode, a_ptr, sa_b, sa_k = _a_layout(a, (B, n, k), b.device)
+    a_scalar = float(a) if a_mode == 0 else 0.0
+    tile, _, tiles = linrec_geometry(B, n, k)
+    y = torch.empty_like(b)
+    y_last = torch.empty((B, k), dtype=torch.float32, device=b.device)
     lib = build.library()
-    with torch.cuda.device(a.device):
+    with torch.cuda.device(b.device):
+        lb = _lookback("linrec", b.device)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pysdr_linrec_f32(a.data_ptr(), b.data_ptr(),
-                                  y_prev.data_ptr(), y.data_ptr(),
-                                  y_last.data_ptr(), B, n, k, _threads(n),
-                                  stream)
+        with lb.lock:
+            epoch = lb.claim(B * k * tiles, B)
+            rc = lib.pysdr_linrec_f32(
+                a_ptr, a_scalar, sa_b, sa_k, a_mode, b.data_ptr(),
+                y_prev.data_ptr(), y.data_ptr(), y_last.data_ptr(), B, n, k,
+                tile, lb.words.data_ptr(), lb.tickets.data_ptr(), epoch,
+                stream)
     build.check_launch(rc, "linrec")
     linrec.launches += 1
     return y, y_last
@@ -68,16 +187,20 @@ def sr_latch(set_: torch.Tensor, reset: torch.Tensor, g_prev: torch.Tensor):
                         (g_prev, "g_prev", (torch.float32,), (B,)))
     if reset.device != set_.device or g_prev.device != set_.device:
         raise ValueError("sr_latch: inputs on different devices")
+    tile, _, tiles = sr_latch_geometry(B, n)
     gate = torch.empty((B, n), dtype=torch.float32, device=set_.device)
     gate_last = torch.empty((B,), dtype=torch.float32, device=set_.device)
     lib = build.library()
     with torch.cuda.device(set_.device):
+        lb = _lookback("sr_latch", set_.device)
         stream = torch.cuda.current_stream().cuda_stream
-        # bool and uint8 share one byte per element: pass the storage as is
-        rc = lib.pysdr_sr_latch_u8(set_.data_ptr(), reset.data_ptr(),
-                                   g_prev.data_ptr(), gate.data_ptr(),
-                                   gate_last.data_ptr(), B, n, _threads(n),
-                                   stream)
+        with lb.lock:
+            epoch = lb.claim(B * tiles, B)
+            # bool and uint8 share one byte per element: pass the storage
+            rc = lib.pysdr_sr_latch_u8(
+                set_.data_ptr(), reset.data_ptr(), g_prev.data_ptr(),
+                gate.data_ptr(), gate_last.data_ptr(), B, n, tile,
+                lb.words.data_ptr(), lb.tickets.data_ptr(), epoch, stream)
     build.check_launch(rc, "sr_latch")
     sr_latch.launches += 1
     return gate, gate_last

@@ -26,15 +26,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from pysdr_tpu import rates, tables
-from pysdr_tpu.ops import fir
-from pysdr_tpu.tables import Mode
+from pysdr_tpu_torch import rates, tables
 from pysdr_tpu_torch.device import map_tensors, resolve_device
 from pysdr_tpu_torch.models.receiver import BankIO
 from pysdr_tpu_torch.ops import channelizer as chan_ops
 from pysdr_tpu_torch.ops import cplx
 from pysdr_tpu_torch.ops import demod as demod_ops
-from pysdr_tpu_torch.ops import nco, resample
+from pysdr_tpu_torch.ops import fir, nco, resample
+from pysdr_tpu_torch.tables import Mode
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pysdr_tpu_torch.device import resolve_device
 from pysdr_tpu_torch.ops import spectrum
 
 
@@ -116,10 +117,10 @@ class ThreeBox:
     update(x_block) runs the PSD + waterfall step on the device and
     returns a host DisplayFrame; retune(fc) realigns the waterfall."""
 
-    def __init__(self, cfg: DisplayConfig, tag: str = "", device="cpu"):
+    def __init__(self, cfg: DisplayConfig, tag: str = "", device="cuda"):
         self.cfg = cfg
         self.tag = tag
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.spots = SpotList()
         self.design = spectrum.SpectrumDesign(
             fs=cfg.fs, nfft=cfg.nfft, window=cfg.window)

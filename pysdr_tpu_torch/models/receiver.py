@@ -16,14 +16,13 @@ import warnings
 import numpy as np
 import torch
 
-from pysdr_tpu import config as cfg_mod
-from pysdr_tpu import tables
-from pysdr_tpu.ops import fir
-from pysdr_tpu.tables import Mode
+from pysdr_tpu_torch import config as cfg_mod
+from pysdr_tpu_torch import tables
 from pysdr_tpu_torch.device import map_tensors, resolve_device
 from pysdr_tpu_torch.ops import cplx
 from pysdr_tpu_torch.ops import demod as demod_ops
-from pysdr_tpu_torch.ops import nco, resample
+from pysdr_tpu_torch.ops import fir, nco, resample
+from pysdr_tpu_torch.tables import Mode
 
 
 @dataclasses.dataclass

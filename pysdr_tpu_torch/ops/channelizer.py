@@ -21,8 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pysdr_tpu.ops import fir
-from pysdr_tpu_torch.ops import cplx
+from pysdr_tpu_torch.ops import cplx, fir
 
 
 @dataclasses.dataclass(frozen=True)

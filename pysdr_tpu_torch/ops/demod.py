@@ -18,11 +18,10 @@ import functools
 import numpy as np
 import torch
 
-from pysdr_tpu import tables
-from pysdr_tpu.ops import fir
-from pysdr_tpu.tables import Mode
+from pysdr_tpu_torch import tables
 from pysdr_tpu_torch.ops import agc as agc_ops
-from pysdr_tpu_torch.ops import fftfilt, nco, scanops
+from pysdr_tpu_torch.ops import fftfilt, fir, nco, scanops
+from pysdr_tpu_torch.tables import Mode
 
 C64 = torch.complex64
 F32 = torch.float32

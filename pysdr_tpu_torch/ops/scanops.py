@@ -68,21 +68,25 @@ def sr_latch_ref(set_: torch.Tensor, reset: torch.Tensor,
     return gate, gate[:, -1]
 
 
-def linrec(a: torch.Tensor, b: torch.Tensor, y_prev):
+def linrec(a, b: torch.Tensor, y_prev):
     """Evaluate y[n] = a[n]*y[n-1] + b[n] per column; y[-1] = y_prev.
-    a, b float32 (n,), (n, k) or (B, n, k); y_prev broadcastable to
-    (B, k). Returns (y, y_last) in the input's layout."""
-    shape = a.shape
-    a3, b3 = _as_bnk(a), _as_bnk(b)
-    B, _, k = a3.shape
-    yp = torch.as_tensor(y_prev, dtype=a.dtype, device=a.device) \
+    b float32 (n,), (n, k) or (B, n, k); a a float32 tensor of b's shape
+    (a per-column constant expanded along n is taken as it is, without a
+    copy) or a python float for every sample; y_prev broadcastable to
+    (B, k). Returns (y, y_last) in b's layout."""
+    shape = b.shape
+    b3 = _as_bnk(b)
+    B, _, k = b3.shape
+    yp = torch.as_tensor(y_prev, dtype=b.dtype, device=b.device) \
         .expand(B, k)
-    if a.device.type == "cpu":
+    a3 = _as_bnk(a) if isinstance(a, torch.Tensor) else a
+    if b.device.type == "cpu":
+        if not isinstance(a3, torch.Tensor):
+            a3 = b3.new_tensor(a3).expand(b3.shape)
         y, last = linrec_ref(a3, b3, yp)
     else:
         from pysdr_tpu_torch.kernels import scan
-        y, last = scan.linrec(a3.contiguous(), b3.contiguous(),
-                              yp.contiguous())
+        y, last = scan.linrec(a3, b3, yp.contiguous())
     if len(shape) == 1:
         return y.reshape(shape), last.reshape(())
     if len(shape) == 2:
@@ -94,12 +98,12 @@ def one_pole(x: torch.Tensor, alpha, y_prev):
     """One-pole lowpass y[n] = alpha*x[n] + (1-alpha)*y[n-1]. x in linrec's
     layout; alpha a python scalar, or a float32 tensor (k,) per column on
     x's device. A scalar stays a kernel argument: made into a device
-    tensor it would be a blocking host-to-device copy every call."""
+    tensor it would be a blocking host-to-device copy every call. A
+    tensor's 1-alpha goes to the kernel expanded, at stride 0 along n."""
     if isinstance(alpha, torch.Tensor):
         return linrec((1.0 - alpha).expand(x.shape), alpha * x, y_prev)
     alpha = np.float32(alpha)
-    return linrec(torch.full_like(x, float(np.float32(1.0) - alpha)),
-                  x * float(alpha), y_prev)
+    return linrec(float(np.float32(1.0) - alpha), x * float(alpha), y_prev)
 
 
 def sr_latch(set_: torch.Tensor, reset: torch.Tensor, g_prev):

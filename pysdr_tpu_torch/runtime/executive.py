@@ -25,9 +25,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from pysdr_tpu.runtime.profiler import BlockProfiler
-from pysdr_tpu.runtime.ringbuffer import RingBuffer
 from pysdr_tpu_torch.ops import cplx
+from pysdr_tpu_torch.runtime.profiler import BlockProfiler
+from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
 
 
 class Executive:

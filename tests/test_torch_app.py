@@ -5,7 +5,7 @@ channelizer bank and serves the RTTY panel, the recording taps, fifo,
 aux path, presets, --internals, control servers, rig follow, hop
 schedule and rtl_tcp work as in pysdr_tpu.app, the unported flags and a
 missing card fail loudly, a bounded run drops no block, and no module
-imports jax."""
+imports jax or the JAX package, nor does a CLI run."""
 
 import json
 import os
@@ -20,11 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from pysdr_tpu.config import PipelineConfig, ReceiverConfig
-from pysdr_tpu.tables import Mode
 from pysdr_tpu_torch import app
+from pysdr_tpu_torch.config import PipelineConfig, ReceiverConfig
 from pysdr_tpu_torch.models.receiver import ReceiverBank
 from pysdr_tpu_torch.runtime.executive import Executive
+from pysdr_tpu_torch.tables import Mode
 
 torch.set_num_threads(1)
 
@@ -217,27 +217,56 @@ def test_bounded_runs_drop_no_block(prefetch):
     np.testing.assert_array_equal(audio[0], audio[1])
 
 
+# A subprocess preamble that refuses jax and the JAX package: the port
+# imports neither, as on a card host without them.
+NO_JAX = textwrap.dedent("""
+    import sys
+    def _refused(name):
+        return (name in ("jax", "pysdr_tpu")
+                or name.startswith(("jax.", "jaxlib", "pysdr_tpu.")))
+    class NoJax:
+        def find_spec(self, name, path=None, target=None):
+            if _refused(name):
+                raise ImportError("import refused: " + name)
+    sys.meta_path.insert(0, NoJax())
+    """)
+NO_JAX_LOADED = "assert not any(map(_refused, sys.modules)), sys.modules\n"
+
+
 def test_every_module_imports_without_jax():
     pkg = os.path.join(ROOT, "pysdr_tpu_torch")
     mods = sorted(
         "pysdr_tpu_torch." + os.path.relpath(os.path.join(d, f), pkg)
         [:-3].replace(os.sep, ".").replace(".__init__", "")
         for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py"))
-    script = textwrap.dedent(f"""
-        import importlib, sys
-        class NoJax:
-            def find_spec(self, name, path=None, target=None):
-                if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                    raise ImportError("jax import refused: " + name)
-        sys.meta_path.insert(0, NoJax())
-        for m in {mods!r} + ["pysdr_tpu.runtime.webview"]:
+    script = NO_JAX + textwrap.dedent(f"""
+        import importlib
+        for m in {mods!r}:
             importlib.import_module(m.removesuffix(".__main__"))
-        assert not any(k == "jax" or k.startswith("jax.")
-                       for k in sys.modules)
-        print("imported", len({mods!r}))
-        """)
+        """) + NO_JAX_LOADED + f"print('imported', {len(mods)})\n"
     out, report = run_cli("-c", script)
     assert out.returncode == 0 and "imported" in out.stdout, report
+
+
+def test_cli_runs_without_the_jax_package(tmp_path):
+    """`python -m pysdr_tpu_torch --device cpu` on the AM corpus for two
+    blocks, with jax and every pysdr_tpu module refused."""
+    argv = ["pysdr_tpu_torch", "--device", "cpu", "--replay",
+            os.path.join(FIX, "am_tones.dat"), "--no-loop", "--fc", "100.0",
+            "100.04", "--mode", "AM", "--block", "4096", "--blocks", "2",
+            "--wav", str(tmp_path / "am")]
+    script = NO_JAX + textwrap.dedent(f"""
+        import runpy
+        sys.argv = {argv!r}
+        try:
+            runpy.run_module("pysdr_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            assert not e.code, e.code
+        """) + NO_JAX_LOADED + "print('clean exit')\n"
+    out, report = run_cli("-c", script)
+    assert out.returncode == 0 and "clean exit" in out.stdout, report
+    assert "2 blocks" in out.stdout and "2 RX" in out.stdout, report
+    assert (tmp_path / "am_rx0.wav").exists(), report
 
 
 # ---- the RTTY decoder in the app ----
@@ -607,19 +636,10 @@ def test_host_services_run_without_jax(tmp_path):
             "--save-iq", "--save-baseband", "--save-demod", "--save-dir",
             str(tmp_path), "--aux-wav", str(tmp_path / "aux.wav"), "--rtty",
             "0", "--wav", str(tmp_path / "w"), "--psd", "--web", "0"]
-    script = textwrap.dedent(f"""
-        import sys
-        class NoJax:
-            def find_spec(self, name, path=None, target=None):
-                if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                    raise ImportError("jax import refused: " + name)
-        sys.meta_path.insert(0, NoJax())
+    script = NO_JAX + textwrap.dedent(f"""
         from pysdr_tpu_torch import app
         rc = app.main({argv!r})
-        assert not any(k == "jax" or k.startswith("jax.")
-                       for k in sys.modules)
-        print("rc", rc)
-        """)
+        """) + NO_JAX_LOADED + "print('rc', rc)\n"
     out, report = run_cli("-c", script)
     assert out.returncode == 0 and "rc 0" in out.stdout, report
     assert len([f for f in os.listdir(tmp_path) if f.endswith(".dat")]) == 3

@@ -15,11 +15,12 @@ from pysdr_tpu.models.channelizer_bank import \
     ChannelizerBankConfig as JaxConfig
 from pysdr_tpu.models.channelizer_bank import ChannelSettings as JaxSettings
 from pysdr_tpu.ops import cplx as jcplx
-from pysdr_tpu.tables import Mode
+from pysdr_tpu.tables import Mode as JMode
 from pysdr_tpu_torch import convert
 from pysdr_tpu_torch.models.channelizer_bank import (ChannelizerBank,
                                                      ChannelizerBankConfig,
                                                      ChannelSettings)
+from pysdr_tpu_torch.tables import Mode
 
 torch.set_num_threads(1)
 
@@ -29,13 +30,13 @@ FC = 100e6
 
 def configs(fs_ch, out_block=2048, **kw):
     """The same bank for both packages: (port config, JAX config)."""
-    def make(cfg_cls, set_cls):
+    def make(cfg_cls, set_cls, mode):
         return cfg_cls(fs_in=N * fs_ch, n_channels=N, fs_out=48e3,
                        out_block=out_block, fc_hz=FC,
-                       channels=tuple(set_cls(mode=Mode.AM, **kw)
+                       channels=tuple(set_cls(mode=mode.AM, **kw)
                                       for _ in range(N)))
-    return make(ChannelizerBankConfig, ChannelSettings), \
-        make(JaxConfig, JaxSettings)
+    return make(ChannelizerBankConfig, ChannelSettings, Mode), \
+        make(JaxConfig, JaxSettings, JMode)
 
 
 def station_blocks(cfg, n_blocks, fm_channel=5):
@@ -121,9 +122,9 @@ def test_retune_mode_change_and_mute_match_jax():
     params0 = tb.params
     for blk, x in enumerate(station_blocks(tcfg, 4)):
         if blk == 1:
-            for b in (tb, jb):
+            for b, M in ((tb, Mode), (jb, JMode)):
                 b.retune(2, 5e3)
-                b.set_mode(5, Mode.NFM)
+                b.set_mode(5, M.NFM)
         if blk == 2:
             for b in (tb, jb):
                 b.set_mute(5, True)
@@ -158,7 +159,7 @@ def test_jax_state_carries_into_port():
     tcfg, jcfg = configs(192e3)
     jb = JaxBank(jcfg)
     xs = station_blocks(tcfg, 4)
-    jb.set_mode(5, Mode.NFM)
+    jb.set_mode(5, JMode.NFM)
     jb.retune(2, -3e3)
     for x in xs[:2]:
         jb.step(x)

@@ -11,8 +11,9 @@ import torch
 
 from pysdr_tpu.ops import cplx as jcplx
 from pysdr_tpu.ops import demod as jdemod
-from pysdr_tpu.tables import Mode
+from pysdr_tpu.tables import Mode as JMode
 from pysdr_tpu_torch.ops import demod
+from pysdr_tpu_torch.tables import Mode
 
 torch.set_num_threads(1)
 
@@ -66,7 +67,7 @@ def test_design_filters_and_params_bit_equal():
     for mode in MODES:
         for kw in CHANNELS:
             pt = demod.make_params(T_DESIGN, mode, **kw)
-            pj = jdemod.make_params(J_DESIGN, mode, **kw)
+            pj = jdemod.make_params(J_DESIGN, JMode(mode), **kw)
             np.testing.assert_array_equal(
                 pt.af_taps.numpy(), jcplx.unpack(np.asarray(pj.af_taps)))
             for f in ("mode", "bfo_k", "fm_scale", "squelch_lin", "af_gain",
@@ -89,7 +90,8 @@ def test_fft_af_false_is_not_ported():
 @pytest.mark.parametrize("mode", MODES, ids=[m.name for m in MODES])
 def test_demod_block_matches_jax(mode):
     rng = np.random.default_rng(int(mode))
-    pj = [jdemod.make_params(J_DESIGN, mode, **kw) for kw in CHANNELS]
+    pj = [jdemod.make_params(J_DESIGN, JMode(mode), **kw)
+          for kw in CHANNELS]
     pj = jax.tree.map(lambda *xs: jnp.stack(xs), *pj)
     sj = jax.tree.map(lambda x: jnp.asarray(np.stack([x, x])),
                       jdemod.init_state(J_DESIGN))

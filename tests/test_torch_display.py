@@ -89,7 +89,8 @@ def test_threebox_update_matches_jax(pan_dir):
     image, peaks, background and time pane."""
     fs = 1.024e6
     cfg = dict(fs=fs, fc_hz=7.0e6, nfft=256, rows=12, pan_dir=pan_dir)
-    tb = display.ThreeBox(display.DisplayConfig(**cfg), tag="RF")
+    tb = display.ThreeBox(display.DisplayConfig(**cfg), tag="RF",
+                          device="cpu")
     jb = jdisp.ThreeBox(jdisp.DisplayConfig(**cfg), tag="RF")
     for k in range(6):
         if k == 3:

@@ -14,9 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from pysdr_tpu.config import PipelineConfig, ReceiverConfig
-from pysdr_tpu.tables import Mode
 from pysdr_tpu_torch import kernels
+from pysdr_tpu_torch.config import PipelineConfig, ReceiverConfig
 from pysdr_tpu_torch.kernels import build
 from pysdr_tpu_torch.kernels import pfb as kpfb
 from pysdr_tpu_torch.kernels import rtty as krtty
@@ -26,6 +25,7 @@ from pysdr_tpu_torch.models.channelizer_bank import (ChannelizerBankConfig,
 from pysdr_tpu_torch.models import rtty
 from pysdr_tpu_torch.models.receiver import ReceiverBank
 from pysdr_tpu_torch.ops import channelizer, cplx, demod, scanops
+from pysdr_tpu_torch.tables import Mode
 
 torch.set_num_threads(1)
 
@@ -189,11 +189,94 @@ def test_pfb_wrapper_rejects_a_wrong_dtype_or_shape():
         kpfb.pfb_branch(xw, hist, taps)
 
 
-def test_threads_per_block():
-    assert kscan._threads(1) == 32
-    assert kscan._threads(384) == 32
-    assert kscan._threads(24576) == 1024
-    assert all(kscan._threads(n) <= 1024 for n in (10 ** 6, 2 ** 24))
+@pytest.mark.parametrize("shape,tile", [
+    ((4, 24576, 4), 512), ((4, 24576, 2), 512), ((4, 384, 1), 512),
+    ((64, 12288, 4), 1024), ((64, 12288, 2), 1024), ((64, 192, 1), 512),
+    ((2, 200000, 4), 1024), ((2, 1, 4), 512)])
+def test_scan_geometry(shape, tile):
+    """A block per (row, tile): the longer tile (1024 samples for linrec,
+    2048 for the latch's four warps) where it still gives >= 128 blocks,
+    else the short one (512), so bank4's 4 rows get 192 blocks and
+    chan64's 64 rows 768 (linrec) and 384 (latch)."""
+    B, n, k = shape
+    got, threads, tiles = kscan.linrec_geometry(B, n, k)
+    assert (got, threads, tiles) == (tile, 64 * k, -(-n // tile))
+    assert B * tiles >= min(kscan.MIN_BLOCKS, B * -(-n // 512))
+    ltile, lthreads, ltiles = kscan.sr_latch_geometry(B, n)
+    assert ltile == 2048 if tile == 1024 else ltile == 512
+    assert lthreads == ltile // kscan.LATCH_RUN and ltiles == -(-n // ltile)
+    assert B * ltiles >= min(kscan.MIN_BLOCKS, B * -(-n // 512))
+
+
+def test_every_wrapper_counts_launches_from_import():
+    """A fresh process: each kernel wrapper carries its launch count
+    before any reset (a missing count would fail the first launch)."""
+    import subprocess
+    import sys
+    out = subprocess.run(
+        [sys.executable, "-c", "from pysdr_tpu_torch import kernels; "
+         "print({f.__name__: f.launches for f, _, _ in kernels.KERNELS})"],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str({"linrec": 0, "sr_latch": 0,
+                                      "pfb_branch": 0, "rtty_scores": 0})
+
+
+def test_lookback_bookkeeping():
+    """The epoch rises by one a launch; the status words are zeroed (and
+    the epoch restarts) only when it wraps or the buffer grows; the
+    ticket counters grow to the rows and start at 0."""
+    lb = kscan._Lookback(torch.device("cpu"), torch.int64, 3, 3)
+    assert lb.claim(10, 4) == 1 and lb.words.numel() == 32
+    assert lb.tickets.numel() == 4 and not lb.tickets.any()
+    lb.words.fill_(7)
+    assert lb.claim(10, 3) == 2 and lb.claim(5, 4) == 3
+    assert int(lb.words[0]) == 7 and lb.tickets.numel() == 4
+    assert lb.claim(5, 1) == 1 and not lb.words.any()     # wrapped
+    lb.words.fill_(7)
+    assert lb.claim(11, 5) == 2 and lb.words.numel() == 64
+    assert not lb.words.any() and lb.tickets.numel() == 8
+
+
+def test_scan_a_reaches_the_kernel_uncopied(monkeypatch):
+    """scanops hands the wrapper a per-column 1 - alpha expanded along n
+    (stride 0: no copy, no fill) and a scalar alpha as a python float."""
+    seen = []
+
+    def capture(a, b, y_prev):
+        seen.append(a)
+        return torch.empty_like(b), torch.empty_like(y_prev)
+    monkeypatch.setattr(kscan, "linrec", capture)
+    x = torch.empty((4, 24576, 4), device="meta")
+    scanops.one_pole(x, torch.empty(4, device="meta"),
+                     torch.empty((4, 4), device="meta"))
+    assert seen[-1].shape == x.shape and seen[-1].stride() == (0, 0, 1)
+    scanops.one_pole(x[..., :1], 0.0623, torch.empty((4, 1), device="meta"))
+    assert seen[-1] == float(np.float32(1.0) - np.float32(0.0623))
+    scanops.linrec(torch.empty(4, device="meta").expand(4, 100, 4),
+                   torch.empty((4, 100, 4), device="meta"),
+                   torch.empty((4, 4), device="meta"))
+    assert seen[-1].stride() == (0, 0, 1)
+
+
+def test_scan_wrapper_rejects_an_a_it_does_not_take():
+    b = torch.zeros((2, 8, 3))
+    with pytest.raises(ValueError, match="stride 0 along n"):
+        kscan._a_layout(torch.zeros((2, 3, 8)).transpose(1, 2), b.shape,
+                        b.device)
+    with pytest.raises(ValueError, match="shape"):
+        kscan._a_layout(torch.zeros((2, 8, 2)), b.shape, b.device)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kscan._a_layout(torch.zeros((2, 8, 3)), b.shape, b.device)
+    with pytest.raises(ValueError, match="k <= 4"):
+        kscan.linrec(0.5, torch.zeros((1, 8, 5)), torch.zeros((1, 5)))
+    assert kscan._a_layout(0.5, b.shape, b.device)[0] == 0
+    # one sample: a per-column constant expanded over 2 rows has a
+    # stride along n that no element uses
+    a1 = torch.zeros(3, device="meta").expand(2, 1, 3)
+    assert a1.stride() == (0, 3, 1) and not a1.is_contiguous()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kscan._a_layout(a1, (2, 1, 3), torch.device("cpu"))
 
 
 def test_one_pole_scalar_alpha_equals_per_column_alpha():
@@ -329,6 +412,97 @@ def test_linrec_kernel_matches_plain_at_chan64(cuda, shape):
     scale = y_ref.abs().max().item()
     assert (y.cpu() - y_ref).abs().max().item() / scale <= 1e-4
     assert (last.cpu() - l_ref).abs().max().item() / scale <= 1e-4
+
+
+# n around one 512-sample tile, one sample, and 391 tiles a row
+EDGE_NS = [511, 512, 513, 1, 200_000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_kind", ["dense", "columns", "scalar"])
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_linrec_kernel_edge_shapes(cuda, n, a_kind):
+    """Tiles that end one short of, on and one past a tile, a single
+    sample, and a long row; a dense, a per-column constant at stride 0
+    along n (never copied), or a python scalar."""
+    a, b, yp = (torch.from_numpy(v) for v in scan_inputs((3, n, 4), 14))
+    if a_kind == "columns":
+        a = a[:, :1].expand(3, n, 4)
+    a_dev = (0.9921875 if a_kind == "scalar" else a.to(cuda))
+    if a_kind == "scalar":
+        a = torch.full_like(b, 0.9921875)
+    if a_kind == "columns":
+        a_dev = a_dev[:, :1].expand(3, n, 4)
+        assert a_dev.stride(1) == 0 or n == 1
+    y_ref, l_ref = scanops.linrec_ref(a, b, yp)
+    y, last = kscan.linrec(a_dev, b.to(cuda), yp.to(cuda))
+    torch.cuda.synchronize()
+    scale = y_ref.abs().max().item()
+    assert (y.cpu() - y_ref).abs().max().item() / scale <= 1e-4
+    assert (last.cpu() - l_ref).abs().max().item() / scale <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1023, 1024, 1025, 2047, 2048, 2049])
+def test_scan_kernels_long_tile_edges(cuda, n):
+    """130 rows take the long tiles (linrec 1024 samples, the latch's
+    four warps 2048): n one short of, on and one past them."""
+    a, b, yp = (torch.from_numpy(v) for v in scan_inputs((130, n, 2), 18))
+    assert kscan.linrec_geometry(130, n, 2)[0] == 1024
+    y_ref, l_ref = scanops.linrec_ref(a, b, yp)
+    y, last = kscan.linrec(a.to(cuda), b.to(cuda), yp.to(cuda))
+    s, r, gp = (torch.from_numpy(v) for v in latch_inputs((130, n), 19))
+    assert kscan.sr_latch_geometry(130, n)[0] == 2048
+    g_ref, gl_ref = scanops.sr_latch_ref(s, r, gp)
+    g, gl = kscan.sr_latch(s.to(cuda), r.to(cuda), gp.to(cuda))
+    torch.cuda.synchronize()
+    scale = y_ref.abs().max().item()
+    assert (y.cpu() - y_ref).abs().max().item() / scale <= 1e-4
+    assert (last.cpu() - l_ref).abs().max().item() / scale <= 1e-4
+    assert torch.equal(g.cpu(), g_ref) and torch.equal(gl.cpu(), gl_ref)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_repeat_exactly(cuda):
+    """Many launches through one look-back buffer (epochs past the
+    latch's wrap at 31, shapes that grow and shrink it) give the same
+    bits each time for the same inputs."""
+    a, b, yp = (torch.from_numpy(v).to(cuda)
+                for v in scan_inputs((4, 24576, 4), 15))
+    s, r, gp = (torch.from_numpy(v).to(cuda)
+                for v in latch_inputs((4, 24576), 16))
+    y0, _ = kscan.linrec(a, b, yp)
+    g0, _ = kscan.sr_latch(s, r, gp)
+    for i in range(40):
+        kscan.linrec(a[:, :1000, :1].contiguous(), b[:, :1000, :1]
+                     .contiguous(), yp[:, :1].contiguous())
+        kscan.sr_latch(s[:1, :700].contiguous(), r[:1, :700].contiguous(),
+                       gp[:1])
+        y, _ = kscan.linrec(a, b, yp)
+        g, _ = kscan.sr_latch(s, r, gp)
+        torch.cuda.synchronize()
+        assert torch.equal(g, g0), i
+        # the carry's association depends on which predecessors had
+        # published their prefix: equal to f32 rounding, not to the bit
+        assert (y - y0).abs().max().item() <= 1e-4 * y0.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_sr_latch_kernel_edge_shapes(cuda, n):
+    """As for linrec, with commands only in the first and last few
+    samples of rows 1-2 and none in row 0: the carry crosses up to 390
+    tiles with no command."""
+    s, r, gp = latch_inputs((3, n), 17)
+    quiet = np.ones(n, bool)
+    quiet[:37] = quiet[-5:] = False
+    s[:, quiet] = r[:, quiet] = False
+    s[0] = r[0] = False
+    s, r, gp = (torch.from_numpy(v) for v in (s, r, gp))
+    g_ref, l_ref = scanops.sr_latch_ref(s, r, gp)
+    g, last = kscan.sr_latch(s.to(cuda), r.to(cuda), gp.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(g.cpu(), g_ref) and torch.equal(last.cpu(), l_ref)
 
 
 @pytest.mark.cuda

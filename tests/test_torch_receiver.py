@@ -8,24 +8,34 @@ import numpy as np
 import pytest
 import torch
 
-from pysdr_tpu.config import PipelineConfig, ReceiverConfig
+from pysdr_tpu import config as jconfig
+from pysdr_tpu import tables as jtables
 from pysdr_tpu.io import synth
 from pysdr_tpu.models.receiver import ReceiverBank as JaxBank
 from pysdr_tpu.ops import cplx as jcplx
-from pysdr_tpu.tables import Mode
-from pysdr_tpu_torch import convert
+from pysdr_tpu_torch import config, convert, tables
 from pysdr_tpu_torch.models.receiver import ReceiverBank
 
 torch.set_num_threads(1)
 
-CFG = PipelineConfig(
-    fs_in=512e3, fs_out=48e3, out_block=3072, foffset_hz=60e3,
-    receivers=(
-        ReceiverConfig(fc_hz=10e6, mode=Mode.AM),
-        ReceiverConfig(fc_hz=10.03e6, mode=Mode.NFM, squelch_db=-150),
-        ReceiverConfig(fc_hz=9.97e6, mode=Mode.USB),
-        ReceiverConfig(fc_hz=10.06e6, mode=Mode.CW),
-    ))
+
+
+def make_cfg(cfg_mod, Mode):
+    """The same bank's config in either package, from one set of
+    keyword arguments."""
+    return cfg_mod.PipelineConfig(
+        fs_in=512e3, fs_out=48e3, out_block=3072, foffset_hz=60e3,
+        receivers=(
+            cfg_mod.ReceiverConfig(fc_hz=10e6, mode=Mode.AM),
+            cfg_mod.ReceiverConfig(fc_hz=10.03e6, mode=Mode.NFM,
+                                   squelch_db=-150),
+            cfg_mod.ReceiverConfig(fc_hz=9.97e6, mode=Mode.USB),
+            cfg_mod.ReceiverConfig(fc_hz=10.06e6, mode=Mode.CW),
+        ))
+
+
+CFG = make_cfg(config, tables.Mode)
+JCFG = make_cfg(jconfig, jtables.Mode)
 
 
 def snr_db(got, ref):
@@ -59,7 +69,7 @@ def assert_parity(tb, jb, x, tag):
 
 
 def test_constants_and_params_bit_equal():
-    tb, jb = ReceiverBank(CFG, device="cpu"), JaxBank(CFG)
+    tb, jb = ReceiverBank(CFG, device="cpu"), JaxBank(JCFG)
     np.testing.assert_array_equal(tb.video_bank.numpy(), jb.video_bank)
     np.testing.assert_array_equal(tb.carrier_taps.numpy(),
                                   jcplx.unpack(jb.carrier_taps))
@@ -80,14 +90,14 @@ def test_constants_and_params_bit_equal():
 
 
 def test_bank_matches_jax_over_retune_and_mode_change():
-    tb, jb = ReceiverBank(CFG, device="cpu"), JaxBank(CFG)
+    tb, jb = ReceiverBank(CFG, device="cpu"), JaxBank(JCFG)
     xs = blocks(4, tb.design.in_block)
     for blk, x in enumerate(xs):
         if blk == 1:
             for b in (tb, jb):
                 b.retune(1, 10.031e6)
         if blk == 2:
-            for b in (tb, jb):
+            for b, Mode in ((tb, tables.Mode), (jb, jtables.Mode)):
                 b.set_mode(0, Mode.AM_SYNC)
                 b.set_squelch(2, 3.0)
         assert_parity(tb, jb, x, blk)
@@ -96,7 +106,7 @@ def test_bank_matches_jax_over_retune_and_mode_change():
 
 
 def test_jax_state_carries_into_port():
-    jb = JaxBank(CFG)
+    jb = JaxBank(JCFG)
     xs = blocks(4, jb.design.in_block)
     for x in xs[:2]:
         jb.step(x)
@@ -117,7 +127,7 @@ def test_jax_state_carries_into_port():
 @pytest.mark.parametrize("wire", ["i16", "i8"])
 def test_audio_wire_within_one_code(wire):
     tb = ReceiverBank(CFG, audio_wire=wire, device="cpu")
-    jb = JaxBank(CFG, audio_wire=wire)
+    jb = JaxBank(JCFG, audio_wire=wire)
     for x in blocks(2, tb.design.in_block):
         got = tb.step_device(tb.to_device_block(x)).numpy()
         ref = np.asarray(jb.step_device(jb.to_device_block(x)))
