@@ -10,9 +10,12 @@ Phases, each of which must pass (exit 1 on the first failure):
      main paths' shapes (linrec <= 1e-4 relative, with `a` as the main
      path gives it, and at edge shapes around its tile; sr_latch exact,
      also across runs of tiles with no command; pfb_branch <= 1e-5
-     relative on the i8 and f32 wires; rtty_scores' soft bits bit-equal
-     and its scores <= 1e-4 absolute at the 100-channel decoder's (F,
-     nfft, C, T) with and without a soft tail and at one channel), with
+     relative and its new history exact on the i8, i16 and f32 wires at
+     chan64's (M, N, K), and at edge shapes: one row short of and past
+     its 128-row tile, fewer rows than K - 1, 128 branches; rtty_scores'
+     soft bits bit-equal and its scores <= 1e-4 absolute at the
+     100-channel decoder's (F, nfft, C, T) with and without a soft tail,
+     at one channel and at 77 offsets, not a multiple of its loop), with
      CUDA-event times of both (median of 20), each kernel's device time
      alone (torch.profiler) beside its bound, and a depthwise F.conv1d
      timed beside pfb_branch as its library yardstick.
@@ -76,13 +79,17 @@ CHAN64 = ["--channelize", "64", "--fs", "12.288", "--fc", "100.0",
 RTTY = ["--no-loop", "--fc", "100.0", "--mode", "RTTY", "--rtty", "0"]
 # the first shape of each kernel is the one its kernels-line times are
 # taken at: chan64's for the scans and the PFB, then bank4's (and
-# pfb_branch on the f32 wire); linrec's `a` as the main path gives it (a
+# pfb_branch on the f32 and i16 wires, then its edge shapes: 127 and 129
+# rows around its 128-row tile, 5 rows < K - 1 so the new history
+# reaches into the old, 128 branches in two tiles); linrec's `a` as the
+# main path gives it (a
 # per-column constant at stride 0 along n for the 4- and 2-column passes,
 # a python scalar for the AGC), then edge shapes around its 512-sample
 # tile with a dense `a`; the latch's edge shapes, "quiet" with commands
 # only near a row's ends; rtty_scores' (F, nfft, C, T) are the
 # 100-channel decoder's at 96 kHz without and with its soft tail, and
-# one channel
+# one channel, and 77 offsets (T = 65), not a multiple of the kernel's
+# 4-offset groups or its 32-offset pass
 KERNEL_SHAPES = {"linrec": [(64, 12288, 4, "columns"), (64, 12288, 2, "columns"),
                             (64, 192, 1, "scalar"), (4, 24576, 4, "columns"),
                             (4, 24576, 2, "columns"), (4, 384, 1, "scalar"),
@@ -93,9 +100,12 @@ KERNEL_SHAPES = {"linrec": [(64, 12288, 4, "columns"), (64, 12288, 2, "columns")
                               (3, 512, ""), (3, 513, ""), (2, 1, ""),
                               (2, 200000, "quiet")],
                  "pfb_branch": [(49152, 64, 12, "i8"),
-                                (49152, 64, 12, "f32")],
+                                (49152, 64, 12, "f32"),
+                                (49152, 64, 12, "i16"),
+                                (127, 64, 12, "i8"), (129, 64, 12, "i8"),
+                                (5, 64, 12, "i8"), (4096, 128, 12, "i16")],
                  "rtty_scores": [(43, 4096, 100, 64), (43, 4096, 100, 0),
-                                 (43, 4096, 1, 64)]}
+                                 (43, 4096, 1, 64), (43, 4096, 100, 65)]}
 # the least time the card could take: H100 SXM HBM3 at its 700 W limit,
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12

@@ -166,8 +166,10 @@ class ChannelizerBank(BankIO, torch.nn.Module):
             np.asarray(dd.carrier_filter(), np.complex64)).to(self.device))
         self.register_buffer("pilot_taps", torch.from_numpy(
             np.asarray(dd.pilot_filter(), np.complex64)).to(self.device))
-        # the demod's scan constants go to the device now, not in a step
-        demod_ops.scan_constants(dd, self.device)
+        # the demod's scan constants go to the device now, not in a step;
+        # keyed by the tensors' indexed device ("cuda:0"), as the step
+        # looks them up, not by the unindexed "cuda" it may be given
+        demod_ops.scan_constants(dd, self.pilot_taps.device)
 
         self._ch_cfgs = list(cfg.channels)
         self._last_bb = None          # executive/app tap parity

@@ -3,6 +3,9 @@
 consecutive blocks so the history carries; and of the channel-batched
 resample_block against JAX resample_block run per channel."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -148,3 +151,142 @@ def test_resample_block_batched_matches_jax_per_channel(up, down, fs):
             assert rel_err(y_t[c].numpy(), np.asarray(y_j)) <= 1e-5, c
             np.testing.assert_array_equal(hist_t[c].numpy(),
                                           np.asarray(hist_j[c]))
+
+
+# ---- csrc/pfb.cu's tiled decomposition, emulated in numpy ----
+#
+# The kernel cannot run here. emulate_pfb_branch repeats its
+# decomposition (row tiles x 64-branch tiles, the view rows each block
+# stages from the wire in its copy unit, the hist rows read from global
+# memory, each thread's run of rows, the new history from the last row
+# tile) at the constants of csrc/pfb.cu, checks that every sample it
+# reads from the staged rows was staged, and is held against the twin
+# and the JAX branch filter.
+
+def cu_constants(name):
+    """The `constexpr int kName = <literal>;` constants of a kernel
+    source."""
+    with open(os.path.join(os.path.dirname(chan.__file__), os.pardir,
+                           "csrc", name)) as f:
+        return {k: int(v) for k, v in
+                re.findall(r"constexpr int (\w+) = (\d+);", f.read())}
+
+
+def pfb_stage(raw, src, rows, seg, stride, pair, base):
+    """stage() of csrc/pfb.cu: the staged bytes and the copy unit, for a
+    wire block whose storage starts at address `base`."""
+    one = seg == stride
+    n_rows, length = (1, rows * seg) if one else (rows, seg)
+    unit = 16
+    while unit > pair and ((base + src) | (0 if one else stride)
+                           | length) & (unit - 1):
+        unit //= 2
+    assert length % unit == 0 and (base + src) % unit == 0
+    out = np.concatenate([raw[src + r * stride:src + r * stride + length]
+                          for r in range(n_rows)])
+    return out, unit
+
+
+def emulate_pfb_branch(xw, hist, taps, base=256):
+    """pfb_branch_kernel's decomposition: xw a numpy wire block (n, 2),
+    hist complex64 ((K-1)*N,), taps (N, K). Returns (v, new_hist, the
+    copy units used)."""
+    c = cu_constants("pfb.cu")
+    n, nch, k = xw.shape[0], taps.shape[0], taps.shape[1]
+    m_rows, h_rows = n // nch, k - 1
+    pair = 2 * xw.itemsize
+    raw = xw.reshape(-1).view(np.uint8)
+    scale = (None if xw.dtype == np.float32 else
+             np.float32(1.0 / (127.0 if xw.dtype == np.int8 else 32767.0)))
+    nbf = min(nch, c["kBranches"])
+    tile = c["kThreads"] // nbf * c["kRun"]
+    staged = k <= c["kMaxTaps"]
+    v = np.full((m_rows, nch), np.nan, np.complex64)
+    new_hist = np.full(h_rows * nch, np.nan, np.complex64)
+    units = set()
+    for bx in range(-(-m_rows // tile)):
+        for by in range(-(-nch // c["kBranches"])):
+            m0, c0 = bx * tile, by * c["kBranches"]
+            nb = min(nch - c0, c["kBranches"])
+            jlo = max(m0, h_rows)
+            jhi = min(m0 + tile + h_rows, m_rows + h_rows)
+            if staged and jhi > jlo:
+                smem, unit = pfb_stage(raw, ((jlo - h_rows) * nch + c0) * pair,
+                                       jhi - jlo, nb * pair, nch * pair,
+                                       pair, base)
+                units.add(unit)
+                sx = smem.view(xw.dtype).reshape(-1, 2)
+
+            def at(j, b):
+                """Samples (view rows j, branches c0 + b), broadcast."""
+                j, b = np.broadcast_arrays(j, b)
+                out = np.empty(j.shape, np.complex64)
+                old = j < h_rows
+                out[old] = hist[j[old] * nch + c0 + b[old]]
+                jw, bw = j[~old], b[~old]
+                if staged:
+                    assert ((jw >= jlo) & (jw < jhi)).all()
+                    p = sx[(jw - jlo) * nb + bw]
+                else:
+                    p = xw[(jw - h_rows) * nch + c0 + bw]
+                p = p.astype(np.float32)
+                if scale is not None:
+                    p = p * scale
+                out[~old] = p[:, 0] + 1j * p[:, 1]
+                return out
+
+            b = np.arange(nb)
+            for g in range(c["kThreads"] // nbf):
+                ma = m0 + g * c["kRun"]
+                rows = np.arange(ma, min(ma + c["kRun"], m_rows))
+                if not len(rows):
+                    continue
+                re_, im_ = (np.zeros((len(rows), nb), np.float32)
+                            for _ in range(2))
+                for kk in range(k):           # k = 0 first, as the kernel
+                    s = at(rows[:, None] + k - 1 - kk, b[None, :])
+                    w = taps[c0 + b, kk][None, :]
+                    re_ = re_ + w * s.real
+                    im_ = im_ + w * s.imag
+                assert np.isnan(v[rows[:, None], c0 + b[None, :]]).all()
+                v[rows[:, None], c0 + b[None, :]] = re_ + 1j * im_
+            if bx == -(-m_rows // tile) - 1:
+                r = np.arange(h_rows)[:, None]
+                new_hist[(r * nch + c0 + b[None, :]).reshape(-1)] = \
+                    at(m_rows + r, b[None, :]).reshape(-1)
+    return v, new_hist, units
+
+
+# (M, N, K, wire): chan64's tile and one row short of and past it over 3
+# tiles, fewer rows than K - 1, 128 branches in two tiles, a last
+# partial branch tile, odd N, one tap, and K above the register window
+PFB_TILE_CASES = [(300, 64, 12, "i8"), (127, 64, 12, "i8"),
+                  (129, 64, 12, "f32"), (5, 64, 12, "i8"),
+                  (40, 128, 12, "i16"), (40, 100, 2, "i8"),
+                  (9, 3, 5, "i16"), (20, 4, 1, "f32"), (33, 8, 17, "i8")]
+
+
+@pytest.mark.parametrize("m,nch,k,wire", PFB_TILE_CASES)
+def test_pfb_tiling_emulation_matches_twin_and_jax(m, nch, k, wire):
+    """Every output and history sample written once, every staged read
+    inside the staged rows; v within 1e-6 of the twin and the JAX filter,
+    the new history bit-equal to both."""
+    rng = np.random.default_rng(m + nch + k)
+    x = rng.uniform(-1.0, 1.0, (m * nch, 2)).astype(np.float32)
+    xw = cplx.quantize_host(x, wire)
+    hist = cnoise(rng, (k - 1) * nch)
+    taps = rng.standard_normal((nch, k)).astype(np.float32)
+    v, new_hist, units = emulate_pfb_branch(xw, hist, taps)
+    xd = np.ascontiguousarray(cplx.dequantize(torch.from_numpy(xw)).numpy())
+    v_t, h_t = chan.branch_filter_ref(
+        torch.from_numpy(xd).view(torch.complex64)[:, 0],
+        torch.from_numpy(hist), torch.from_numpy(taps))
+    v_j, h_j = jchan.branch_filter(xd.view(np.complex64)[:, 0], hist, taps,
+                                   nch)
+    assert not np.isnan(v).any() and not np.isnan(new_hist).any()
+    assert rel_err(v, v_t.numpy()) <= 1e-6
+    assert rel_err(v, np.asarray(v_j)) <= 1e-6
+    np.testing.assert_array_equal(new_hist, h_t.numpy())
+    np.testing.assert_array_equal(new_hist, np.asarray(h_j))
+    if (m, nch, wire) == (300, 64, "i8"):
+        assert units == {16}          # chan64's rows: whole 16-byte units

@@ -33,13 +33,20 @@ torch.set_num_threads(1)
 MAIN_SHAPES = [(4, 24576, 4), (4, 24576, 2), (4, 384, 1)]
 # the same at chan64 (64 channels, 12288-sample audio blocks)
 CHAN64_SHAPES = [(64, 12288, 4), (64, 12288, 2), (64, 192, 1)]
-# the branch filter's (M, N, K) at chan64 and two small ones
-PFB_SHAPES = [(49152, 64, 12), (5, 8, 12), (3, 4, 1)]
+# the branch filter's (M, N, K) at chan64 and two small ones; then edge
+# shapes of its tiling (128 rows x 64 branches a block at N = 64): one
+# row short of and past a tile, fewer rows than K - 1 (the new history
+# reaches into the old), 128 branches in two tiles, a last partial
+# branch tile, odd N, and K above the kernel's register window
+PFB_SHAPES = [(49152, 64, 12), (5, 8, 12), (3, 4, 1),
+              (127, 64, 12), (129, 64, 12), (5, 64, 12), (64, 128, 12),
+              (40, 100, 2), (9, 3, 5), (33, 8, 17)]
 # rtty_scores' (F, nfft, C, T): the 100-channel decoder at 96 kHz without
-# and with a carried soft tail, one channel, and a short call with no
-# scores (T + F < L)
+# and with a carried soft tail, one channel, a short call with no
+# scores (T + F < L), 77 offsets (not a multiple of the kernel's 4-offset
+# groups or 32-offset pass) and 289 offsets (two 256-offset chunks)
 RTTY_SHAPES = [(43, 4096, 100, 0), (43, 4096, 100, 64), (43, 4096, 1, 64),
-               (5, 512, 3, 20)]
+               (5, 512, 3, 20), (43, 4096, 100, 65), (300, 512, 3, 20)]
 
 
 @pytest.fixture
@@ -530,7 +537,9 @@ def test_dispatch_takes_the_kernel_on_cuda(cuda):
 @pytest.mark.cuda
 def test_bank_step_does_not_wait_on_the_card(cuda):
     """A 4-RX bank step launches every scan kernel and makes no blocking
-    copy or stream sync: sync debug mode 'error' raises on any."""
+    copy or stream sync: sync debug mode 'error' raises on any (the
+    demod's scan constants cleared first, as for the channelizer bank)."""
+    demod.scan_constants.cache_clear()
     cfg = PipelineConfig(
         fs_in=512e3, fs_out=48e3, out_block=3072, foffset_hz=60e3,
         receivers=tuple(ReceiverConfig(fc_hz=f, mode=m) for f, m in (
@@ -604,7 +613,10 @@ def test_pfb_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_chanbank_step_does_not_wait_on_the_card(cuda):
     """An 8-channel bank step launches every kernel (the branch filter
     once, the scans as in the receiver bank) and makes no blocking copy
-    or stream sync: sync debug mode 'error' raises on any."""
+    or stream sync: sync debug mode 'error' raises on any. The demod's
+    scan constants are cleared first, so the bank's constructor alone
+    must have put them on the device (under the key the step uses)."""
+    demod.scan_constants.cache_clear()
     cfg = ChannelizerBankConfig(fs_in=8 * 192e3, n_channels=8,
                                 out_block=2048, fc_hz=100e6)
     bank = ChannelizerBank(cfg, audio_wire="i8", device=cuda)
@@ -655,8 +667,9 @@ def test_rtty_wrapper_rejects_mixed_devices(cuda):
 
 @pytest.mark.cuda
 def test_rtty_templates_too_long_for_shared_memory_fail_the_launch(cuda):
-    """The kernel stages the 32 templates in one block's shared memory
-    (48 KB without opting in); a length past that bound is refused by the
+    """The kernel stages the 32 templates and one chunk of soft rows in
+    one block's shared memory (48 KB without opting in: templates up to
+    363 frames); a length past that bound is refused by the
     library and raised by the wrapper, and counts no launch."""
     mags, mark, space, tail, _ = (a.to(cuda) for a in
                                   rtty_inputs(43, 512, 4, 64, 26))

@@ -10,6 +10,8 @@ by channel as the JAX decoder does; and a port decoder continued from a
 JAX decoder's mid-stream state emits what the JAX decoder emits."""
 
 import copy
+import os
+import re
 
 import numpy as np
 import pytest
@@ -107,6 +109,96 @@ def test_rtty_scores_ref_below_one_character(frames, tail):
                                     t(soft_tail), t(tmpl))
     assert soft.shape == (frames + tail, 3) and sc.shape == (0, 3, 32)
     np.testing.assert_array_equal(soft[:tail].numpy(), soft_tail)
+
+
+
+# ---- csrc/rtty.cu's decomposition, emulated in numpy ----
+#
+# The kernel cannot run here. emulate_rtty_scores repeats its
+# decomposition (a block per channel; offsets in chunks, each chunk's
+# soft rows staged with zeros past the last row; warps over groups of
+# consecutive offsets, lane = symbol; soft rows written by the chunk that
+# owns them) at the constants of csrc/rtty.cu, checks the shared-memory
+# bound and that every soft row and score is written once, and is held
+# against the twin and the JAX soft bits and matched scores.
+
+def cu_constants(name):
+    """The `constexpr int kName = <literal>;` constants of a kernel
+    source."""
+    with open(os.path.join(os.path.dirname(rtty.__file__), os.pardir,
+                           "csrc", name)) as f:
+        return {k: int(v) for k, v in
+                re.findall(r"constexpr int (\w+) = (\d+);", f.read())}
+
+
+def emulate_rtty_scores(mags, mark, space, tail, tmpl):
+    c = cu_constants("rtty.cu")
+    warps, group, chunk = c["kWarps"], c["kGroup"], c["kChunk"]
+    f, nfft = mags.shape
+    nch, t_rows, L = len(mark), tail.shape[0], tmpl.shape[1]
+    rows_total = t_rows + f
+    n_off = max(rows_total - L + 1, 0)
+    soft = np.full((rows_total, nch), np.nan, np.float32)
+    scores = np.full((n_off, nch, 32), np.nan, np.float32)
+    chunks = -(-n_off // chunk) if n_off else 1
+    for ch in range(nch):
+        mb, sb = mark[ch] % nfft, space[ch] % nfft
+        for j in range(chunks):
+            o0 = j * chunk
+            o_end = min(o0 + chunk, n_off)
+            write_end = rows_total if j == chunks - 1 else o0 + chunk
+            stage_end = max(o_end + group - 1 + L - 1, write_end)
+            assert stage_end - o0 <= chunk + group - 1 + L - 1
+            r = np.arange(o0, stage_end)
+            val = np.zeros(len(r), np.float32)
+            old, new = r < t_rows, (r >= t_rows) & (r < rows_total)
+            val[old] = tail[r[old], ch]
+            m = mags[r[new] - t_rows, mb]
+            s = mags[r[new] - t_rows, sb]
+            val[new] = (m - s) / (m + s + np.float32(1e-9))
+            own = r < write_end
+            assert np.isnan(soft[r[own], ch]).all()
+            soft[r[own], ch] = val[own]
+            starts = [o for w in range(warps)
+                      for o in range(o0 + w * group, o_end, warps * group)]
+            assert sorted(starts) == list(range(o0, o_end, group))
+            for o in starts:
+                acc = np.zeros((group, 32), np.float32)
+                for t_ in range(L):           # template order
+                    acc = acc + val[o - o0 + t_:o - o0 + t_ + group, None] \
+                        * tmpl[None, :, t_]
+                q = np.arange(group)[o + np.arange(group) < o_end]
+                assert np.isnan(scores[o + q, ch]).all()
+                scores[o + q, ch] = acc[q]
+    return soft, scores
+
+
+# (frames, n_ch, tail): the 100-channel decoder without and with its
+# soft tail, 77 offsets (not a multiple of a group or a pass), fewer
+# rows than a character, and 289 offsets in two chunks
+RTTY_EMULATION_CASES = [(43, 100, 0), (43, 100, 64), (43, 100, 65),
+                        (5, 3, 20), (300, 3, 20)]
+
+
+@pytest.mark.parametrize("frames,n_ch,tail", RTTY_EMULATION_CASES)
+def test_rtty_scores_emulation_matches_twin_and_jax(frames, n_ch, tail):
+    """Soft rows bit-equal to the twin's and within 1e-5 of JAX's; scores
+    within 1e-5 of the twin and SCORE_TOL of JAX."""
+    mags, mark, space, soft_tail, tmpl = score_inputs(
+        4 + frames + tail, frames=frames, n_ch=n_ch, tail=tail)
+    soft, sc = emulate_rtty_scores(mags, mark, space, soft_tail, tmpl)
+    soft_t, sc_t = rtty.rtty_scores_ref(t(mags), t(mark), t(space),
+                                        t(soft_tail), t(tmpl))
+    assert not np.isnan(soft).any() and not np.isnan(sc).any()
+    np.testing.assert_array_equal(soft, soft_t.numpy())
+    assert sc.shape == sc_t.shape
+    j_soft = np.concatenate([soft_tail, np.asarray(
+        jrtty.soft_bits(mags, mark, space))])
+    assert np.abs(soft - j_soft).max() <= 1e-5
+    if sc.size:
+        assert np.abs(sc - sc_t.numpy()).max() <= 1e-5
+        j_sc = np.asarray(jrtty.matched_scores(j_soft, tmpl))
+        assert np.abs(sc - j_sc).max() <= SCORE_TOL
 
 
 # ---- the decoder, scenario by scenario (tests/test_rtty.py) ----
