@@ -15,7 +15,9 @@ Phases, each of which must pass (exit 1 on the first failure):
      its 128-row tile, fewer rows than K - 1, 128 branches; rtty_scores'
      soft bits bit-equal and its scores <= 1e-4 absolute at the
      100-channel decoder's (F, nfft, C, T) with and without a soft tail,
-     at one channel and at 77 offsets, not a multiple of its loop), with
+     at one channel and at 77 offsets, not a multiple of its loop; and
+     the scans and pfb_branch at the shapes phase 10's mesh shards give
+     them), with
      CUDA-event times of both (median of 20), each kernel's device time
      alone (torch.profiler) beside its bound, and a depthwise F.conv1d
      timed beside pfb_branch as its library yardstick.
@@ -48,10 +50,22 @@ Phases, each of which must pass (exit 1 on the first failure):
      once on every block with channels, and the decoder's wall ms per
      block against the block's 256 ms; then bank4 for 2 blocks with
      --save-iq --save-baseband --save-demod, each .dat parsed back.
+ 10. mesh: the entry point with --mesh 1,1 (through the adapters) at
+     bank4's and chan64's full width: every RX's tone, the station
+     channels' tones >= 40 dB, an idle channel squelched silent; then the
+     streaming processors on a grid of cuda:0 four times against the
+     serial bank on the card over identical blocks made on the card: bank4
+     at 2 x 2, chan64 at 1 x 4 and 2 x 2, audio SNR > 55 dB with AGC off
+     and > 30 dB with AGC and squelch on, with their launches and
+     CUDA-event ms a call.
+ 11. host surface: `python -m pysdr_tpu_torch.probe --smoke` names the
+     card and passes; a 2-block bank4 replay with --jax-trace leaves a
+     trace file; a 4-block bank4 replay (a CS8 capture made on the card)
+     at --pipeline-depth 2 prints stage_report() and its drain ms a block.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches summed over the paths' runs (phases 4, 7
-and 9, each with the counts set to 0 before it), their largest error
+the kernels with their launches summed over the paths' runs (phases 4,
+7, 9 and 10, each with the counts set to 0 before it), their largest error
 over phase 3's shapes, and at their first shape there their times, bound
 and library time (or null). Imports no JAX, and of this repository only
 pysdr_tpu_torch, which imports neither: the run fails if any jax or
@@ -89,21 +103,33 @@ RTTY = ["--no-loop", "--fc", "100.0", "--mode", "RTTY", "--rtty", "0"]
 # only near a row's ends; rtty_scores' (F, nfft, C, T) are the
 # 100-channel decoder's at 96 kHz without and with its soft tail, and
 # one channel, and 77 offsets (T = 65), not a multiple of the kernel's
-# 4-offset groups or its 32-offset pass
+# 4-offset groups or its 32-offset pass. Then the shapes phase 10's mesh
+# shards give the kernels: each shard runs [0.2 s halo | segment], so
+# bank4's demod sees 34176 audio samples a row ((1.6 M + 4.096 M) RF x
+# 3/500) at 4 rows (1 x 1) or 2 (2 x 2), and chan64's 21888 a channel
+# (87552 PFB rows of 64, over 4) at 64, 32 (2 x 2) or 16 (1 x 4)
+# channels, with the AGC pass at 1/64 of that; the channel shards' PFB
+# runs on the f32 wire, dequantized before the halo copies
+MESH_SCANS = [(2, 34176), (4, 34176), (16, 21888), (32, 21888), (64, 21888)]
 KERNEL_SHAPES = {"linrec": [(64, 12288, 4, "columns"), (64, 12288, 2, "columns"),
                             (64, 192, 1, "scalar"), (4, 24576, 4, "columns"),
                             (4, 24576, 2, "columns"), (4, 384, 1, "scalar"),
                             (3, 511, 4, "dense"), (3, 512, 2, "dense"),
                             (3, 513, 1, "dense"), (2, 1, 4, "columns"),
-                            (2, 200000, 4, "dense")],
+                            (2, 200000, 4, "dense")]
+                 + [(rows, n // q, k, kind) for rows, n in MESH_SCANS
+                    for q, k, kind in ((1, 4, "columns"), (1, 2, "columns"),
+                                       (64, 1, "scalar"))],
                  "sr_latch": [(64, 12288, ""), (4, 24576, ""), (3, 511, ""),
                               (3, 512, ""), (3, 513, ""), (2, 1, ""),
-                              (2, 200000, "quiet")],
+                              (2, 200000, "quiet")]
+                 + [(rows, n, "") for rows, n in MESH_SCANS],
                  "pfb_branch": [(49152, 64, 12, "i8"),
                                 (49152, 64, 12, "f32"),
                                 (49152, 64, 12, "i16"),
                                 (127, 64, 12, "i8"), (129, 64, 12, "i8"),
-                                (5, 64, 12, "i8"), (4096, 128, 12, "i16")],
+                                (5, 64, 12, "i8"), (4096, 128, 12, "i16"),
+                                (87552, 64, 12, "f32")],
                  "rtty_scores": [(43, 4096, 100, 64), (43, 4096, 100, 0),
                                  (43, 4096, 1, 64), (43, 4096, 100, 65)]}
 # the least time the card could take: H100 SXM HBM3 at its 700 W limit,
@@ -119,6 +145,7 @@ RTTY_FS = 96e3
 RTTY_BLOCK = 24576                     # 256 ms of baseband a block
 RTTY_UP, RTTY_DOWN = 64, 3             # 96 kHz -> an RTL rate, 2.048 MHz
 RTTY_SHIFT = 120e3                     # the RX's offset from the center
+T0 = time.perf_counter()               # the phases print their start
 
 
 class SmokeFailure(Exception):
@@ -131,7 +158,7 @@ def check(cond, msg):
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps=20):
@@ -793,6 +820,283 @@ def rtty_phase(tmp):
     return total
 
 
+def mesh_cli_phase(tmp):
+    """Phase 10.1: `--mesh 1,1` through the entry point at bank4's and
+    chan64's full width, so the runs go through the adapters. Returns the
+    launches of the two runs, summed."""
+    import numpy as np
+    import torch
+
+    from pysdr_tpu_torch import app, kernels
+
+    total = {}
+
+    def drive(argv, adapter, kinds):
+        print("argv: " + " ".join(argv), flush=True)
+        kernels.reset_launch_counts()
+        rc, a = app.run_cli(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"launches: {launches}", flush=True)
+        check(rc == 0 and a is not None, f"{argv} exited {rc}")
+        check(type(a.bank).__name__ == adapter,
+              f"--mesh 1,1 ran {type(a.bank).__name__}, not {adapter}")
+        for name in kinds:
+            check(launches[name] > 0, f"kernel {name} never launched on "
+                  f"the {adapter} path")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        return a
+
+    prefix = os.path.join(tmp, "mesh4")
+    a = drive(["--device", "cuda", *BANK4, "--wire", "i8", "--audio-wire",
+               "i16", "--blocks", "4", "--mesh", "1,1", "--wav", prefix],
+              "ShardedStreamBank", BANK4_KERNELS)
+    expect = {"AM": 400.0, "NFM": 800.0, "USB": 1200.0}
+    for i, rc_i in enumerate(a.cfg.receivers):
+        pk, db = wav_peak(f"{prefix}_rx{i}.wav")
+        want = (rc_i.bfo_hz if rc_i.mode.name == "CW"
+                else expect[rc_i.mode.name])
+        print(f"mesh 1,1 rx{i} {rc_i.mode.name}: peak {pk:.2f} Hz (want "
+              f"{want}), {db:.1f} dB over floor", flush=True)
+        check(abs(pk - want) <= 5.0 and db >= 40.0,
+              f"mesh 1,1 rx{i}: peak {pk} Hz / {db:.1f} dB")
+    prefix = os.path.join(tmp, "mesh64")
+    drive(["--device", "cuda", *CHAN64, "--blocks", "3", "--mesh", "1,1",
+           "--wav", prefix], "ShardedChannelizerBank", CHAN64_KERNELS)
+    for i in (0, 4, 8, 12, 60):
+        pk, db = wav_peak(f"{prefix}_rx{i}.wav")
+        want = 300.0 + 50.0 * i
+        print(f"mesh 1,1 ch{i}: peak {pk:.2f} Hz (want {want}), {db:.1f} "
+              "dB over floor", flush=True)
+        check(abs(pk - want) <= 5.0 and db >= 40.0,
+              f"mesh 1,1 ch{i}: peak {pk} Hz / {db:.1f} dB")
+    for i in (1, 2):
+        with wave.open(f"{prefix}_rx{i}.wav") as w:
+            d = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        tail = np.abs(d[len(d) // 2:].astype(np.int32)).max()
+        print(f"mesh 1,1 ch{i} (idle, squelch 10 dB): max |sample| over "
+              f"the last half {tail}", flush=True)
+        check(tail == 0, f"mesh 1,1: idle ch{i} is not squelched: {tail}")
+    return total
+
+
+def station_blocks(offsets, kinds, audio_hz, fs, n, n_blocks, device,
+                   amp=0.05, seed=0):
+    """n_blocks consecutive float32 (n, 2) RF blocks on `device`, one
+    station an offset: "am" (a 50 % AM tone), "fm" (5 kHz deviation by a
+    tone), "usb" (the tone above the carrier) or "cw" (a carrier); plus
+    noise 60 dB under a station. Phases from the exact sample index."""
+    import math
+
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for b in range(n_blocks):
+        i = torch.arange(b * n, (b + 1) * n, dtype=torch.float64,
+                         device=device)
+
+        def cyc(f):
+            return 2 * math.pi * torch.remainder(i * (f / fs), 1.0)
+        x = amp * 1e-3 * torch.complex(
+            torch.randn(n, generator=gen, device=device, dtype=torch.float64),
+            torch.randn(n, generator=gen, device=device, dtype=torch.float64))
+        for off, kind, fa in zip(offsets, kinds, audio_hz):
+            ph = cyc(off)
+            if kind == "am":
+                x = x + amp * (1 + 0.5 * torch.sin(cyc(fa))) \
+                    * torch.exp(1j * ph)
+            elif kind == "fm":
+                x = x + amp * torch.exp(1j * (ph + 5e3 / fa
+                                              * torch.sin(cyc(fa))))
+            elif kind == "usb":
+                x = x + amp * torch.exp(1j * (ph + cyc(fa)))
+            else:
+                x = x + amp * torch.exp(1j * ph)
+        out.append(torch.view_as_real(x.to(torch.complex64)).contiguous())
+    return out
+
+
+def snr_db(ref, got):
+    """Audio SNR of got against ref, per channel: (n_ch,) in dB."""
+    import numpy as np
+    err = np.sum(np.abs(got - ref) ** 2, axis=-1)
+    sig = np.sum(np.abs(ref) ** 2, axis=-1)
+    return 10 * np.log10(np.maximum(sig, 1e-30) / np.maximum(err, 1e-30))
+
+
+def sharded_vs_serial(bank_of, blocks, proc_of, grid, device, skip,
+                      channels, floor):
+    """The streaming processor of `proc_of(bank, mesh)` on an S x C grid
+    of `device` repeated, against the serial bank over the same blocks:
+    per-channel audio SNR after `skip` samples, checked against `floor`.
+    Returns (launches of the sharded calls, CUDA-event ms a call)."""
+    import numpy as np
+    import torch
+
+    from pysdr_tpu_torch import kernels
+    from pysdr_tpu_torch.parallel import mesh as mesh_mod
+
+    serial = bank_of()
+    ref = np.concatenate([serial.audio_from_wire(serial.step_device(xb))
+                          for xb in blocks], axis=1)
+    s, c = grid
+    mesh = mesh_mod.make_mesh(s, c, devices=[device] * (s * c))
+    bank = bank_of()
+    proc, halo = proc_of(bank, mesh)
+    n = bank.n_rx
+    state = [torch.zeros((halo, 2), dtype=torch.float32, device=device),
+             torch.zeros(n, dtype=torch.int64, device=device),
+             torch.zeros(n, dtype=torch.int64, device=device),
+             getattr(bank.state, "ch", bank.state).demod]
+    outs, ms = [], []
+    on_card = torch.device(device).type == "cuda"
+    kernels.reset_launch_counts()
+    for k in range(len(blocks) // s):
+        x = torch.cat(blocks[k * s:(k + 1) * s])
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        res = proc(x, bank.params, *state)
+        if on_card:
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        outs.append(mesh_mod.gather(res[0], mesh).numpy())
+        state = [res[3], res[1], res[2], res[4]]
+    if on_card:
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    got = np.concatenate(outs, axis=1)
+    got = got.view(np.complex64)[..., 0] if got.dtype == np.float32 \
+        else got
+    snr = snr_db(ref[channels, skip:], got[channels, skip:])
+    print(f"  {s}x{c} grid, halo {halo}: {len(outs)} calls, launches "
+          f"{launches}, {statistics.median(ms) if ms else 0.0:.3f} ms a "
+          f"call (events); SNR against the serial bank min "
+          f"{snr.min():.1f} max {snr.max():.1f} dB (floor {floor})",
+          flush=True)
+    check(snr.min() > floor, f"{s}x{c}: {snr.min():.1f} dB <= {floor}")
+    return launches, ms
+
+
+def mesh_stream_phase(device="cuda", bank4=BANK4, chan64=CHAN64,
+                      n_blocks=8):
+    """Phase 10.2: the streaming processors on a grid of one device
+    repeated 4 times against the serial bank over identical blocks, AGC
+    off (> 55 dB, tests/test_sharded_streaming.py:195) and AGC and
+    squelch on (> 30 dB, :232 and :300): bank4 at 2 x 2, chan64 at 1 x 4
+    and 2 x 2. Returns the launches of the sharded calls, summed."""
+    from pysdr_tpu_torch import app
+    from pysdr_tpu_torch.models.channelizer_bank import ChannelizerBank
+    from pysdr_tpu_torch.models.receiver import ReceiverBank
+    from pysdr_tpu_torch.parallel import chanshard, stream
+
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    # the RTTY-free bank4 layout; its synth's stations, made on the card
+    kinds = {"AM": "am", "NFM": "fm", "USB": "usb", "CW": "cw"}
+    for extra, skip, floor in ((["--no-agc"], 16384, 55.0),
+                               (["--squelch", "-60"], 48000, 30.0)):
+        args = app.build_parser().parse_args([*bank4, *extra])
+        cfg = app.build_config(args)
+        print(f"bank4 {' '.join(extra)}:", flush=True)
+        d = ReceiverBank(cfg, device=device).design
+        blocks = station_blocks(
+            cfg.channel_offsets_hz(), [kinds[r.mode.name]
+                                       for r in cfg.receivers],
+            [400.0 * (i + 1) for i in range(len(cfg.receivers))],
+            cfg.fs_in, d.in_block, n_blocks, device)
+        launches, _ = sharded_vs_serial(
+            lambda: ReceiverBank(cfg, device=device), blocks,
+            lambda b, m: stream.make_streaming_processor(b, m, d.in_block),
+            (2, 2), device, skip, list(range(len(cfg.receivers))), floor)
+        add(launches)
+    for extra, skip, floor in ((["--no-agc", "--squelch", "-150"], 16384,
+                                55.0), ([], 48000, 30.0)):
+        _, _, cfg = app.build_channelizer(app.build_parser().parse_args(
+            ["--device", device, *chan64, "--audio-wire", "f32", *extra]))
+        offs = cfg.center_freqs_hz() - cfg.fc_hz
+        stations = list(range(0, cfg.n_channels, 4))
+        print(f"chan64 {' '.join(extra) or '(AGC on, squelch 10 dB)'}:",
+              flush=True)
+        seg = ChannelizerBank(cfg, device=device).design.in_block
+        blocks = station_blocks(
+            [offs[i] for i in stations], ["am"] * len(stations),
+            [300.0 + 50.0 * i for i in stations], cfg.fs_in, seg, n_blocks,
+            device)
+        for grid in ((1, 4), (2, 2)):
+            launches, _ = sharded_vs_serial(
+                lambda: ChannelizerBank(cfg, audio_wire="f32",
+                                        device=device), blocks,
+                lambda b, m: chanshard.make_channelizer_streaming_processor(
+                    b, m, seg), grid, device, skip, stations, floor)
+            add(launches)
+    return total
+
+
+def bank4_cs8(path, n_blocks=5):
+    """Write n_blocks of bank4's four stations (station_blocks, made on
+    the card) to `path` as a CS8 capture: a replay of it feeds the
+    executive faster than the synth renders."""
+    from pysdr_tpu_torch import app
+    from pysdr_tpu_torch.io import datfile
+
+    cfg = app.build_config(app.build_parser().parse_args(BANK4))
+    kinds = {"AM": "am", "NFM": "fm", "USB": "usb", "CW": "cw"}
+    w = datfile.DatWriter(path, fs=cfg.fs_in, fc=cfg.sdr_center_hz,
+                          dtype="int8")
+    for xb in station_blocks(cfg.channel_offsets_hz(),
+                             [kinds[r.mode.name] for r in cfg.receivers],
+                             [400.0 * (i + 1) for i in range(4)], cfg.fs_in,
+                             24576 * 500 // 3, n_blocks, "cuda", amp=0.2):
+        w.save_data(xb.cpu().numpy())
+    w.close()
+
+
+def host_surface_phase(tmp):
+    """Phase 11: the probe on the card (and its --smoke), a 2-block bank4
+    run with --jax-trace leaving a trace file, and a 4-block bank4 replay
+    at --pipeline-depth 2 whose stage_report gives the drain ms a block."""
+    import torch
+
+    from pysdr_tpu_torch import app
+
+    out = subprocess.run([sys.executable, "-m", "pysdr_tpu_torch.probe",
+                          "--smoke"], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    print(out.stdout.strip(), flush=True)
+    kind = torch.cuda.get_device_name(0)
+    check(out.returncode == 0 and kind in out.stdout
+          and "audio rms" in out.stdout and "OK" in out.stdout,
+          f"probe --smoke: rc {out.returncode}\n{out.stdout}\n{out.stderr}")
+
+    path = os.path.join(tmp, "bank4_cs8.dat")
+    bank4_cs8(path)
+    replay = ["--device", "cuda", "--replay", path, "--no-loop", *BANK4,
+              "--wire", "i8", "--audio-wire", "i16"]
+
+    trace = os.path.join(tmp, "trace")
+    rc, _ = app.run_cli([*replay, "--blocks", "2", "--jax-trace", trace])
+    files = [os.path.join(trace, f) for f in os.listdir(trace)] \
+        if os.path.isdir(trace) else []
+    sizes = [os.path.getsize(f) for f in files]
+    print(f"--jax-trace: rc {rc}, files {[os.path.basename(f) for f in files]}"
+          f" {sizes} bytes", flush=True)
+    check(rc == 0 and sizes and min(sizes) > 0, "--jax-trace left no trace")
+
+    rc, a = app.run_cli([*replay, "--blocks", "4", "--pipeline-depth", "2"])
+    check(rc == 0 and a.ex.n_blocks == 4, f"depth-2 replay exited {rc}")
+    rep = a.ex.stage_report()
+    print(f"bank4 replay, 4 blocks, --pipeline-depth 2: drain "
+          f"{rep['drain']:.3f} ms a block", flush=True)
+    print(f"stage_report ms/block: {rep}", flush=True)
+
+
 def run():
     try:
         import torch
@@ -850,6 +1154,13 @@ def run():
     with tempfile.TemporaryDirectory() as tmp:
         phase("9 rtty path")
         add(rtty_phase(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("10 mesh")
+        add(mesh_cli_phase(tmp))
+        add(mesh_stream_phase())
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("11 host surface")
+        host_surface_phase(tmp)
 
     # of this repository, only the port ran: no JAX, no pysdr_tpu module
     jaxish = sorted(m for m in sys.modules if m in ("jax", "pysdr_tpu")

@@ -10,9 +10,9 @@ channelizer bank instead of the receiver bank. The host services
 (hamlib, UDP, rig follow, hopper, fldigi, memmon, presets, the
 wav/fifo/aux sinks, rtl_tcp, the C++ replay streamer and the web viewer)
 are the port's copies of the JAX package's runtime and io modules: the
-port imports nothing of the JAX package. The flags of features not
-ported yet (`--mesh`, `--jax-trace`) exit 2 with a message instead of
-being ignored.
+port imports nothing of the JAX package. `--mesh S,C` wraps the bank in a
+parallel/adapter bank over an S x C device grid; `--jax-trace DIR` keeps
+its name and writes a torch.profiler trace (runtime/profiler.torch_trace).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from pysdr_tpu_torch import tables
 from pysdr_tpu_torch.tables import Mode
 
 # flags of pysdr_tpu's CLI whose feature is not in this package yet
-UNPORTED = ("mesh", "jax_trace")
+UNPORTED = ()
 # features the channelizer bank does not carry (pysdr_tpu.app's list)
 NOT_WITH_CHANNELIZE = ("rtty", "hamlib", "rig", "hop", "hop_schedule")
 
@@ -575,6 +575,17 @@ class App:
                 cfg, emit_baseband=(args.rtty is not None or args.bb
                                     or args.save_baseband),
                 audio_wire=args.audio_wire, device=args.device)
+        if args.mesh:
+            from pysdr_tpu_torch.parallel.adapter import (
+                ShardedChannelizerBank, ShardedStreamBank, build_mesh)
+            s, _, c = args.mesh.partition(",")
+            mesh = build_mesh(int(s), int(c or 1), device=args.device)
+            # the sharded processors quantize the audio wire inside each
+            # shard and emit the RTTY baseband tap, so --audio-wire and
+            # --rtty compose with --mesh
+            self.bank = (ShardedChannelizerBank(self.bank, mesh)
+                         if args.channelize else
+                         ShardedStreamBank(self.bank, mesh))
         d = self.bank.design
 
         # recording taps (pysdr_tpu.app; reference pySDR.py:117-123)
@@ -638,7 +649,8 @@ class App:
                      or bool(args.bb)))
         if args.ant and hasattr(self.source, "set_antenna"):
             self.source.set_antenna(args.ant)
-        if hasattr(self.bank, "on_device_retune") \
+        inner_bank = getattr(self.bank, "bank", self.bank)  # mesh adapter
+        if hasattr(inner_bank, "on_device_retune") \
                 and hasattr(self.source, "set_freq"):
             tv = self.cfg.transverter_hz
 
@@ -647,7 +659,7 @@ class App:
                 if self.display is not None:
                     # the RF pane tracks the device passband
                     self.display.retune(center)
-            self.bank.on_device_retune = _follow_device
+            inner_bank.on_device_retune = _follow_device
         self.players = create_players(
             self.bank, self.ex.audio_rings, d.fs_out,
             wav_prefix=args.wav, stereo_pairs=args.stereo,
@@ -862,10 +874,16 @@ class App:
                     os.path.join(self.args.png_dir, f"{tag}.png"), tag)
 
     def run(self) -> int:
+        import contextlib
+
+        from pysdr_tpu_torch.runtime.profiler import torch_trace
+        trace = (torch_trace(self.args.jax_trace) if self.args.jax_trace
+                 else contextlib.nullcontext())
         self.start_services()
         try:
-            prof = self.ex.run(n_blocks=self.args.blocks,
-                               duration_s=self.args.duration)
+            with trace:
+                prof = self.ex.run(n_blocks=self.args.blocks,
+                                   duration_s=self.args.duration)
         finally:
             self.stop_services()
         if self.args.profile:

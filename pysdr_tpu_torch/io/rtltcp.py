@@ -157,6 +157,8 @@ class RtlTcpSource:
         self._avail = threading.Condition(self._lock)
         self._stop = threading.Event()
         self._reconnecting = threading.Event()
+        self._reconnect_s = 0.0          # total seconds in _re_establish
+        self._reconnect_t0 = 0.0         # start of the one under way
         # Device commands are issued by a dedicated writer thread: the
         # executive's command queue only mutates host-side state, so a
         # stalled server / full TCP buffer can never block the DSP/audio
@@ -240,11 +242,22 @@ class RtlTcpSource:
         # retry budget (attempts x connect-timeout + backoff) can span a
         # consumer's 10 s window, and the consumer aborting mid-retry
         # would make the configured budget unusable for real outages
-        self._reconnecting.set()
+        with self._avail:
+            self._reconnect_t0 = t0
+            self._reconnecting.set()
         try:
             return self._re_establish_attempts(reason, t0)
         finally:
-            self._reconnecting.clear()
+            with self._avail:
+                self._reconnect_s += time.monotonic() - t0
+                self._reconnecting.clear()
+
+    def _reconnect_seconds(self) -> float:
+        """Seconds spent inside _re_establish so far, the one under way
+        included. Call under self._avail."""
+        if self._reconnecting.is_set():
+            return self._reconnect_s + time.monotonic() - self._reconnect_t0
+        return self._reconnect_s
 
     def _re_establish_attempts(self, reason: str, t0: float) -> bool:
         for attempt in range(1, self._reconnect + 1):
@@ -406,18 +419,22 @@ class RtlTcpSource:
             ready = (lambda: (self._w - self._r) >= nbytes
                      or self._stop.is_set())
             # the timeout window counts only HEALTHY-connection silence:
-            # while the pump thread is inside _re_establish the clock is
-            # suspended (the retry budget is bounded on its own — on
+            # the time the pump thread spends inside _re_establish is
+            # left out (the retry budget is bounded on its own — on
             # exhaustion _pump exits, _stop is set and we fall through
-            # to the dead-reason error below)
-            deadline = time.monotonic() + timeout
+            # to the dead-reason error below). The silence adds up over
+            # the sessions a reconnect opens: the reference resets the
+            # window at each reconnect, so a server that reconnects and
+            # never sends data blocked this read forever (ROADMAP Queue
+            # 3, fixed in this copy only)
+            t0, r0 = time.monotonic(), self._reconnect_seconds()
             while not ready():
                 self._avail.wait_for(ready, 0.25)
                 if ready():
                     break
-                if self._reconnecting.is_set():
-                    deadline = time.monotonic() + timeout
-                elif time.monotonic() >= deadline:
+                silent = (time.monotonic() - t0
+                          - (self._reconnect_seconds() - r0))
+                if silent >= timeout:
                     # live hardware stalled: fail loudly rather than
                     # consuming a partial block and masquerading as EOF
                     raise TimeoutError(

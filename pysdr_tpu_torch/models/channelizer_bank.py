@@ -12,8 +12,8 @@ squelch, mute) is per-channel tensor data, so a control change never
 changes the step, and a knob on one channel rebuilds only that channel's
 row. The executive drives the bank through the same facade as
 ReceiverBank: design.{fs_in, fs_out, in_block, out_block, up, down},
-n_rx, device, step_device, _last_bb, and BankIO's audio_from_wire and
-step.
+n_rx, device, step_device, _last_bb, and BankIO's audio_from_wire,
+baseband_from_wire and step.
 
 Channels are critically sampled; a fine retune off channel center is
 legal but aliases as |offset| -> fs_ch/2, like any critically sampled PFB.
@@ -179,8 +179,11 @@ class ChannelizerBank(BankIO, torch.nn.Module):
     # ---------- construction ----------
 
     @property
-    def n_rx(self) -> int:
+    def n_ch(self) -> int:
         return self.cfg.n_channels
+
+    # the executive-facing name (a receiver per channel)
+    n_rx = n_ch
 
     def _params_for(self, cs: ChannelSettings) -> ChanParams:
         """One channel's params as host tensors. The pre-demod filter row
@@ -221,6 +224,23 @@ class ChannelizerBank(BankIO, torch.nn.Module):
 
     # ---------- the step ----------
 
+    def channel_chain(self, s, ph, rh, dst, pr: ChanParams, consts=None):
+        """Channel streams s (B, M), one block: fine mix -> resample ->
+        demod, from phases ph (B,), resampler tails rh (B, Kp-1) and demod
+        state dst of B rows, with params pr of B rows. Shared by the step
+        and the sharded processors (parallel/chanshard.py), which pass
+        `consts`, (video_bank, carrier_taps, pilot_taps) on their shard's
+        device. Returns (audio (B, out), ph, rh, dst)."""
+        video_bank, carrier, pilot = consts or (
+            self.video_bank, self.carrier_taps, self.pilot_taps)
+        z, ph2 = nco.mix_down(s, pr.nco_k, ph)
+        bb, rh2 = resample.resample_block(
+            z, rh, video_bank[pr.video_row], up=self.plan.up,
+            down=self.plan.down)
+        audio, dst2 = demod_ops.demod_block(
+            bb, dst, pr.demod, self.demod_design, carrier, pilot)
+        return audio, ph2, rh2, dst2
+
     def _step_impl(self, state: ChanBankState, x_wire: torch.Tensor,
                    params: ChanParams):
         """x_wire: float32 / int16 / int8 (in_block, 2) on the device.
@@ -228,13 +248,8 @@ class ChannelizerBank(BankIO, torch.nn.Module):
         v, chan_hist = chan_ops.branch_filter(x_wire, state.chan_hist,
                                               self.branch_weights)
         streams = chan_ops.channel_transform(v).T               # (N, M)
-        z, phase = nco.mix_down(streams, params.nco_k, state.nco_phase)
-        bb, rs_hist = resample.resample_block(
-            z, state.rs_hist, self.video_bank[params.video_row],
-            up=self.plan.up, down=self.plan.down)
-        audio, dstate = demod_ops.demod_block(
-            bb, state.demod, params.demod, self.demod_design,
-            self.carrier_taps, self.pilot_taps)
+        audio, phase, rs_hist, dstate = self.channel_chain(
+            streams, state.nco_phase, state.rs_hist, state.demod, params)
         new_state = ChanBankState(chan_hist=chan_hist, nco_phase=phase,
                                   rs_hist=rs_hist, demod=dstate)
         return new_state, cplx.quantize_audio_wire(

@@ -71,6 +71,36 @@ class ReceiverDesign:
                                                af_taps=cfg.af_taps))
 
 
+def channel_step(x, hist, state: ChannelState, p: ChannelParams,
+                 design: ReceiverDesign, video_bank, carrier_taps,
+                 pilot_taps):
+    """Channels one at a time in form, one block: the whole
+    `demodulate_data` equivalent (reference receiver.py:231-297), as
+    pysdr_tpu/models/receiver.channel_step, batched over the B channels
+    of `state` and `p` as the port's ops are. x complex64 (in_block,) the
+    shared RF block; hist complex64 (Kp-1,) its shared RAW tail of the
+    previous block. state.nco_phase is the LO phase index at x[0]; the
+    tail is re-mixed at the back-shifted phase, reproducing the previous
+    block's mixed tail exactly. Returns (audio complex64 (B, out_block),
+    new_state, bb (B, out_block)).
+
+    This is the per-channel REFERENCE form: each channel's mixed stream
+    is built, then resampled. The bank's step and the stream shards use
+    the fused bank-level mix+resample (ops/resample.mixed_resample_bank)
+    instead; tests/test_torch_receiver.py holds the two forms equal."""
+    kp1 = hist.shape[0]
+    k = p.nco_k
+    p0m = nco.advance((nco.DENOM - k) % nco.DENOM, state.nco_phase, kp1)
+    y, _ = nco.mix_down(torch.cat([hist, x]), k, p0m)       # (B, kp1 + n)
+    phase = nco.advance(k, state.nco_phase, x.shape[0])
+    bb, _ = resample.resample_block(
+        y[:, kp1:], y[:, :kp1], video_bank[p.video_row], up=design.up,
+        down=design.down)
+    audio, dstate = demod_ops.demod_block(
+        bb, state.demod, p.demod, design.demod, carrier_taps, pilot_taps)
+    return audio, ChannelState(nco_phase=phase, demod=dstate), bb
+
+
 class BankIO:
     """The host side of a bank's step, shared by ReceiverBank and
     ChannelizerBank; uses self.device, self.n_rx, self.design.out_block
@@ -85,10 +115,17 @@ class BankIO:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def audio_from_wire(self, audio_w: torch.Tensor) -> np.ndarray:
-        """Device audio wire block -> host complex64 (n_rx, out_block)."""
+        """Audio wire block (the executive's host copy, or a device tensor,
+        which this waits for) -> host complex64 (n_rx, out_block)."""
         flat = cplx.dequantize_audio_host(audio_w.cpu().numpy())
         return np.ascontiguousarray(flat.reshape(
             self.n_rx, self.design.out_block, 2)).view(np.complex64)[..., 0]
+
+    def baseband_from_wire(self, bb: torch.Tensor) -> torch.Tensor:
+        """A step's baseband (_last_bb, a new tensor each step) -> the
+        drained block's baseband, complex64 (n_rx, out_block), on the
+        device: the RTTY decoder reads it there."""
+        return bb
 
     def step(self, x) -> np.ndarray:
         """Host convenience: one RF block (in_block complex) in, host audio

@@ -20,7 +20,7 @@ import torch
 
 from pysdr_tpu_torch import tables
 from pysdr_tpu_torch.ops import agc as agc_ops
-from pysdr_tpu_torch.ops import fftfilt, fir, nco, scanops
+from pysdr_tpu_torch.ops import fftfilt, fir, nco, resample, scanops
 from pysdr_tpu_torch.tables import Mode
 
 C64 = torch.complex64
@@ -80,7 +80,7 @@ class DemodDesign:
     squelch_alpha: float = 0.001
     squelch_hyst: float = 0.5
     mute_hold_s: float = 0.25
-    # only the overlap-save FFT form of the audio-rate FIRs is ported
+    # the audio-rate FIRs as overlap-save FFTs; False: the direct form
     fft_af: bool = True
 
     def carrier_filter(self) -> np.ndarray:
@@ -180,9 +180,7 @@ def scan_constants(design: DemodDesign, device: torch.device):
 
 def _af_fir(x, hist, taps_c, design: DemodDesign):
     if not design.fft_af:
-        raise NotImplementedError(
-            "fft_af=False (the direct-conv audio FIR) is not yet ported to "
-            "pysdr_tpu_torch; see ROADMAP.md Queue 1")
+        return resample.fir_block_cmpx(x, hist, taps_c)
     return fftfilt.fft_fir_block(x, hist, taps_c)
 
 

@@ -4,12 +4,15 @@ post, stop, stage_report, run_in_thread).
 
 Per block the host reads (and wire-quantizes) the next IQ chunk while the
 device computes the current one: CUDA kernels run asynchronously and the
-step never waits on the card (its constants live on the device), so in
-steady state the drain of block k-D (`.cpu()` of an already dispatched
-block) is the only sync point. Uploads go through pinned host memory with
-a non_blocking copy. Control mutations arrive through a thread-safe queue
-and are applied between blocks as params swaps; each swap copies the new
-params up from pageable memory, a sync of its own between blocks.
+step never waits on the card (its constants live on the device). Right
+after a block's step is issued, its audio wire starts copying into
+pinned host memory with one CUDA event a device (start_host_copy, the
+reference's copy_to_host_async), so the drain of block k-D waits for
+that block's copy alone, not for the steps and uploads queued after it.
+Uploads go through pinned host memory with a non_blocking copy. Control
+mutations arrive through a thread-safe queue and are applied between
+blocks as params swaps; each swap copies the new params up from pageable
+memory, a sync of its own between blocks.
 """
 
 from __future__ import annotations
@@ -30,16 +33,46 @@ from pysdr_tpu_torch.runtime.profiler import BlockProfiler
 from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
 
 
+def start_host_copy(audio_w):
+    """Start a step's audio wire (a tensor, or a tuple of one a shard)
+    copying to the host right after dispatch (the reference's
+    copy_to_host_async). A CUDA piece goes to pinned memory from the
+    caching host allocator with a non_blocking copy, which holds its block
+    until the copy is done; one CUDA event a device follows its copies.
+    Returns (host pieces shaped as audio_w, events)."""
+    one = isinstance(audio_w, torch.Tensor)
+    pieces = [audio_w] if one else list(audio_w)
+    host = [p.to("cpu", non_blocking=True) for p in pieces]
+    events = []
+    for dev in dict.fromkeys(p.device for p in pieces if p.is_cuda):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        events.append(ev)
+    return (host[0] if one else tuple(host)), events
+
+
+def drain(bank, entry):
+    """Wait for one block's host copy alone; (host audio complex64 (n_rx,
+    out_block), the block's baseband from bank.baseband_from_wire, or
+    None). entry: (start_host_copy's result, the step's baseband)."""
+    (host_audio, events), bb = entry
+    for ev in events:
+        ev.synchronize()
+    audio = bank.audio_from_wire(host_audio)
+    return audio, None if bb is None else bank.baseband_from_wire(bb)
+
+
 class Executive:
     def __init__(self, bank, source, audio_rings=None, realtime=False,
                  raw_writer=None, demod_writer=None,
                  psd_callback: Callable | None = None, loop_source=True,
                  wire: str = "f32", pipeline_depth: int = 2,
                  want_bb: bool = True, prefetch: bool = True):
-        """bank: a models.receiver.ReceiverBank or
-        models.channelizer_bank.ChannelizerBank, driven only through
-        design.{in_block, fs_in, fs_out}, n_rx, device, step_device,
-        audio_from_wire, _last_bb and the control methods post() names;
+        """bank: a models.receiver.ReceiverBank,
+        models.channelizer_bank.ChannelizerBank or a parallel.adapter
+        bank, driven only through design.{in_block, fs_in, fs_out}, n_rx,
+        device, step_device, audio_from_wire, baseband_from_wire,
+        _last_bb and the control methods post() names;
         source: anything with read_data(n) (DatReader / SynthSource) or
         read_packed(n);
         wire: "f32" | "i16" | "i8" RF format across host->device;
@@ -75,6 +108,7 @@ class Executive:
         self._pf_active = threading.Event()
         self.n_blocks = 0
         self.last_rf_block: np.ndarray | None = None
+        # the drained block's baseband: a device tensor (n_rx, out_block)
         self.drained_bb = None
         # mean ms/block per stage: read = host source + quantize, upload =
         # host->device issue, dispatch = device step issue, drain = result
@@ -213,9 +247,9 @@ class Executive:
 
         def finish(entry):
             nonlocal next_deadline
-            audio_w, self.drained_bb = entry
             t0 = time.perf_counter()
-            audio = self.bank.audio_from_wire(audio_w)   # syncs this block
+            # waits for this block's host copy alone
+            audio, self.drained_bb = drain(self.bank, entry)
             self.stage_ms["drain"] += (time.perf_counter() - t0) * 1e3
             for i, ring in enumerate(self.audio_rings):
                 ring.push(audio[i])
@@ -256,10 +290,11 @@ class Executive:
                     self.last_rf_block = x
                     t0 = time.perf_counter()
                     audio_w = self.bank.step_device(xb)      # async
+                    bb = self.bank._last_bb if self.want_bb else None
+                    # the host copy starts now, behind this step only
+                    pending.append((start_host_copy(audio_w), bb))
                     self.stage_ms["dispatch"] += \
                         (time.perf_counter() - t0) * 1e3
-                    bb = self.bank._last_bb if self.want_bb else None
-                    pending.append((audio_w, bb))
                     # read the next block only if it will be dispatched
                     item = self._read_block() \
                         if wants_more(len(pending)) else None

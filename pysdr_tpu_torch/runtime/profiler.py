@@ -5,13 +5,15 @@ against the nominal frame time, reference profiler.py:27-46): samples/s
 and realtime factor per block.
 
 The port's own copy of BlockProfiler from pysdr_tpu/runtime/profiler.py.
-Its `jax_trace` has no counterpart here yet (a torch.profiler trace of
-the run, ROADMAP item 13), and `Stopwatch`, which the port does not use,
-is left out.
+Its `jax_trace` becomes `torch_trace`, a torch.profiler trace of the run
+(`--jax-trace DIR`); `Stopwatch`, which the port does not use, is left
+out.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 
@@ -65,3 +67,21 @@ class BlockProfiler:
                 f"(budget {self.budget_s*1e3:.2f} ms), "
                 f"{self.realtime_factor:.1f}x realtime, "
                 f"{self.samples_per_s/1e6:.2f} Msamp/s")
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str):
+    """torch.profiler trace of the enclosed run, CPU and (when a card is
+    present) CUDA activity, exported as a Chrome trace
+    `log_dir/trace_<pid>.json` (open with Perfetto or chrome://tracing);
+    the counterpart of pysdr_tpu's jax_trace (the trace hook points the
+    reference comments out, pySDR.py:170-171)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace_{os.getpid()}.json"))

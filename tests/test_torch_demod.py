@@ -3,6 +3,9 @@ vmapped demod_block (JAX on the CPU): every one of the ten modes, over a
 stream of blocks with the squelch gating and auto-mute tripping, >= 80 dB
 audio SNR per block."""
 
+import ctypes
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +19,17 @@ from pysdr_tpu_torch.ops import demod
 from pysdr_tpu_torch.tables import Mode
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_heap():
+    """After this module, give its freed heap back to the OS, so that the
+    next test module in this worker process (tests/test_parity.py's RSS
+    growth check among them) starts without megabytes of free but
+    resident heap that a new allocation would reuse unseen."""
+    yield
+    gc.collect()
+    getattr(ctypes.CDLL(None), "malloc_trim", lambda pad: 0)(0)
 
 FS = 96e3
 N = 3072
@@ -78,13 +92,39 @@ def test_design_filters_and_params_bit_equal():
 
 
 def test_fft_af_false_is_not_ported():
-    d = demod.DemodDesign(fs_out=FS, fft_af=False)
-    st = demod.init_state(d, 1)
-    p = demod.DemodParams.stack([demod.make_params(d, Mode.AM)])
-    taps = torch.from_numpy(d.carrier_filter())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demod.demod_block(torch.zeros(1, 64, dtype=torch.complex64), st, p,
-                          d, taps, taps)
+    """fft_af=False, once refused, now runs the direct-form audio FIRs
+    (ops/resample.fir_block_cmpx, held against the JAX direct form at
+    >= 80 dB in tests/test_torch_forms.py): for AM, USB and NFM its audio
+    agrees with the port's overlap-save form and with the JAX demod
+    within the 5e-4 that tests/test_fftfilt.py:48 allows between the two
+    forms. (The JAX demod's own direct form takes XLA ~25 s to compile on
+    the CPU, so the JAX side runs its default overlap-save form. The test
+    keeps the name it had while fft_af=False raised.)"""
+    n = 2048
+    t_ax = np.arange(n) / FS
+    iq = ((1 + 0.5 * np.sin(2 * np.pi * 1000 * t_ax))
+          * np.exp(2j * np.pi * 30.0 * t_ax)).astype(np.complex64)
+    for mode in (Mode.AM, Mode.USB, Mode.NFM):
+        outs = []
+        for fft_af in (False, True):
+            d = demod.DemodDesign(fs_out=FS, fft_af=fft_af)
+            p = demod.DemodParams.stack([demod.make_params(d, mode,
+                                                           agc_on=False)])
+            a, _ = demod.demod_block(
+                torch.from_numpy(iq[None]), demod.init_state(d, 1), p, d,
+                torch.from_numpy(d.carrier_filter()),
+                torch.from_numpy(d.pilot_filter()))
+            outs.append(a[0].numpy())
+        aj, _ = jdemod.demod_block(
+            jnp.asarray(iq), jdemod.init_state(J_DESIGN),
+            jdemod.make_params(J_DESIGN, JMode(mode), agc_on=False),
+            J_DESIGN, jnp.asarray(J_DESIGN.carrier_filter()),
+            jnp.asarray(J_DESIGN.pilot_filter()))
+        assert snr_db(outs[1], np.asarray(aj)) >= 80.0, mode
+        np.testing.assert_allclose(outs[0], outs[1], atol=5e-4,
+                                   err_msg=str(mode))
+        np.testing.assert_allclose(outs[0], np.asarray(aj), atol=5e-4,
+                                   err_msg=str(mode))
 
 
 @pytest.mark.parametrize("mode", MODES, ids=[m.name for m in MODES])

@@ -174,3 +174,56 @@ def test_hopper_bands_and_presets_equal():
     assert [dataclasses.astuple(p) for p in got[0]] == \
         [dataclasses.astuple(p) for p in jgot[0]]
     assert got[1] == jgot[1]
+
+
+def test_wav_copy_equal(tmp_path):
+    """io/wav.py: the port's write_wav writes the JAX package's bytes
+    (mono, stereo from complex, (n, 2), a peak over 1.0 rescaled, an
+    empty block) and read_wav reads them back alike
+    (tests/test_io.py:35-36)."""
+    from pysdr_tpu.io import wav as jwav
+    from pysdr_tpu_torch.io import wav
+    rng = np.random.default_rng(4)
+    cases = [rng.uniform(-0.9, 0.9, 4800).astype(np.float32),
+             (rng.standard_normal(4800)
+              + 1j * rng.standard_normal(4800)).astype(np.complex64) * 0.3,
+             rng.uniform(-2.0, 2.0, (4800, 2)).astype(np.float32),
+             np.zeros(0, np.complex64)]
+    for i, a in enumerate(cases):
+        p, jp = str(tmp_path / f"t{i}.wav"), str(tmp_path / f"j{i}.wav")
+        wav.write_wav(p, a, 48e3)
+        jwav.write_wav(jp, a, 48e3)
+        assert open(p, "rb").read() == open(jp, "rb").read(), i
+        (x, fs), (jx, jfs) = wav.read_wav(p), jwav.read_wav(jp)
+        np.testing.assert_array_equal(x, jx)
+        assert fs == jfs == 48e3
+    wav.write_wav(str(tmp_path / "m.wav"), cases[1], 48e3,
+                  stereo_from_complex=False)
+    assert wav.read_wav(str(tmp_path / "m.wav"))[0].shape == (4800, 1)
+
+
+def test_latency_copy_equal(tmp_path, capsys):
+    """latency.py: percentile, analyze and main of the port equal the JAX
+    package's on a watchdog CSV with samples and both self-heal events
+    (the main's usage line names its own package)."""
+    from pysdr_tpu import latency as jlatency
+    from pysdr_tpu_torch import latency
+    log = tmp_path / "LOG2.TXT"
+    log.write_text("audio0,1.0,2000,0.0417,0.0417\n"
+                   "audio0,3.0,2600,0.0542,0.0450\n"
+                   "#LOW,audio0,5.0,300\n"
+                   "audio1,3.5,100,0.0021,0.0021\n"
+                   "#HIGH,audio2,6.0,900\n\n")
+    for q in (0.0, 0.5, 0.95, 1.0):
+        vals = sorted(np.random.default_rng(1).uniform(0, 1, 7))
+        assert latency.percentile(vals, q) == jlatency.percentile(vals, q)
+    assert latency.percentile([], 0.5) == jlatency.percentile([], 0.5)
+    assert latency.analyze(str(log)) == jlatency.analyze(str(log))
+    outs = []
+    for mod in (latency, jlatency):
+        rc = mod.main([str(log), str(tmp_path / "missing.csv")])
+        outs.append((rc, capsys.readouterr()))
+    assert outs[0][0] == outs[1][0] == 1
+    assert outs[0][1].out == outs[1][1].out
+    assert latency.main([]) == 2
+    assert "python -m pysdr_tpu_torch.latency" in capsys.readouterr().err

@@ -679,3 +679,98 @@ def test_rtty_templates_too_long_for_shared_memory_fail_the_launch(cuda):
                                            "failed"):
         krtty.rtty_scores(mags, mark, space, tail, tmpl)
     assert krtty.rtty_scores.launches == before
+
+
+# ---- the executive's host copies and the sharded processors ----
+
+def _small_bank(cuda, audio_wire="i16", agc=True):
+    cfg = PipelineConfig(
+        fs_in=512e3, fs_out=48e3, out_block=9600, foffset_hz=60e3,
+        receivers=tuple(ReceiverConfig(fc_hz=f, mode=m, agc_enabled=agc)
+                        for f, m in ((10e6, Mode.AM), (10.03e6, Mode.NFM),
+                                     (9.97e6, Mode.USB), (10.06e6, Mode.CW))))
+    return cfg, ReceiverBank(cfg, audio_wire=audio_wire, device=cuda)
+
+
+def _noise_blocks(n, count, seed):
+    rng = np.random.default_rng(seed)
+    return [((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.1)
+            .astype(np.complex64) for _ in range(count)]
+
+
+@pytest.mark.cuda
+def test_drain_waits_for_its_block_alone(cuda):
+    """The executive's drain of block k-D waits on that block's host copy
+    alone: with the card held busy behind step k (torch.cuda._sleep), the
+    drain of block k-1 returns long before the sleep ends, with that
+    block's audio."""
+    import time
+    from pysdr_tpu_torch.runtime.executive import drain, start_host_copy
+    cfg, bank = _small_bank(cuda)
+    xs = _noise_blocks(bank.design.in_block, 2, 31)
+    xbs = [bank.to_device_block(x) for x in xs]
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    b.synchronize()
+    cycles_a_ms = 10 ** 7 / a.elapsed_time(b)
+    first = (start_host_copy(bank.step_device(xbs[0])), None)   # block k-D
+    step_k = bank.step_device(xbs[1])                           # block k
+    torch.cuda._sleep(int(cycles_a_ms * 1500))                  # ~1.5 s busy
+    second = (start_host_copy(step_k), None)
+    t0 = time.perf_counter()
+    audio0, _ = drain(bank, first)
+    waited = time.perf_counter() - t0
+    assert waited < 0.5, waited
+    audio1, _ = drain(bank, second)
+    ref = ReceiverBank(cfg, audio_wire="i16", device=cuda)
+    np.testing.assert_allclose(audio0, ref.step(xs[0]), atol=1e-6)
+    np.testing.assert_allclose(audio1, ref.step(xs[1]), atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_stream_shards_on_one_card_match_the_serial_bank(cuda):
+    """A 2 x 2 grid of one card: every shard runs the scan kernels (three
+    linrec passes and one sr_latch a shard a call), issued in turn from
+    this thread, and the audio matches the serial bank on the card."""
+    from pysdr_tpu_torch.parallel import mesh as mesh_mod
+    from pysdr_tpu_torch.parallel.adapter import ShardedStreamBank
+    cfg, serial = _small_bank(cuda, "f32", agc=False)
+    _, bank = _small_bank(cuda, "f32", agc=False)
+    ad = ShardedStreamBank(bank, mesh_mod.make_mesh(
+        2, 2, devices=[cuda] * 4))
+    xs = _noise_blocks(bank.design.in_block, 8, 32)
+    ref = np.concatenate([serial.step(x) for x in xs], axis=1)
+    outs = []
+    kernels.reset_launch_counts()
+    for k in range(4):
+        x = np.concatenate(xs[2 * k:2 * k + 2])
+        outs.append(ad.audio_from_wire(ad.step_device(
+            serial.to_device_block(x))))
+    assert kernels.launch_counts() == {"linrec": 48, "sr_latch": 16,
+                                       "pfb_branch": 0, "rtty_scores": 0}
+    got = np.concatenate(outs, axis=1)
+    skip = 16384
+    err = np.sum(np.abs(got[:, skip:] - ref[:, skip:]) ** 2, axis=1)
+    sig = np.sum(np.abs(ref[:, skip:]) ** 2, axis=1)
+    assert (10 * np.log10(sig / err)).min() > 55.0
+
+
+@pytest.mark.cuda
+def test_channel_shards_on_one_card_match_the_serial_bank(cuda):
+    """Channel shards of one card: pfb_branch runs once a shard a call and
+    each shard's channels equal the serial bank's."""
+    from pysdr_tpu_torch.parallel import chanshard, mesh as mesh_mod
+    cfg = ChannelizerBankConfig(fs_in=768e3, n_channels=8, fs_out=48e3,
+                                out_block=1024, fc_hz=100e6)
+    serial = ChannelizerBank(cfg, device=cuda)
+    xs = _noise_blocks(serial.design.in_block, 3, 33)
+    ref = np.concatenate([serial.step(x) for x in xs], axis=1)
+    kernels.reset_launch_counts()
+    got = chanshard.run_sharded(ChannelizerBank(cfg, device=cuda),
+                                np.concatenate(xs),
+                                mesh_mod.single_axis_mesh(
+                                    "ch", [cuda] * 4), n_blocks=3)
+    assert kernels.launch_counts()["pfb_branch"] == 12
+    np.testing.assert_allclose(got, ref, atol=2e-4)
