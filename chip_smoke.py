@@ -62,12 +62,18 @@ Phases, each of which must pass (exit 1 on the first failure):
      card and passes; a 2-block bank4 replay with --jax-trace leaves a
      trace file; a 4-block bank4 replay (a CS8 capture made on the card)
      at --pipeline-depth 2 prints stage_report() and its drain ms a block.
+ 12. bench: `python -m pysdr_tpu_torch.bench --quick` as a child on the
+     card (every config at full width, 2 repetitions): its last line
+     parses, each of its five configs has no error and no failed output
+     check, it names this card, and the bank4 replay read through the C++
+     streamer; its JSON line is printed before the kernels line.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches summed over the paths' runs (phases 4,
 7, 9 and 10, each with the counts set to 0 before it), their largest error
 over phase 3's shapes, and at their first shape there their times, bound
-and library time (or null). Imports no JAX, and of this repository only
+and library time (or null); phase 12's bench line comes before it.
+Imports no JAX, and of this repository only
 pysdr_tpu_torch, which imports neither: the run fails if any jax or
 pysdr_tpu module was loaded.
 """
@@ -456,6 +462,7 @@ def cuda_vs_cpu_phase():
 
     from pysdr_tpu_torch import app
     from pysdr_tpu_torch.models.receiver import ReceiverBank
+    from pysdr_tpu_torch.runtime.profiler import profile_steps, timed_steps
 
     args = app.build_parser().parse_args(BANK4)
     cfg = app.build_config(args)
@@ -565,63 +572,6 @@ def chan64_phase(tmp):
     return launches
 
 
-def profile_steps(bank, xbs):
-    """torch.profiler over bank.step_device on each block: kernels per
-    step, device busy ms per step, host wall ms, device idle share."""
-    import torch
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for xb in xbs:
-            bank.step_device(xb)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / len(xbs)
-    ka = prof.key_averages()
-    print(ka.table(sort_by="device_time_total", row_limit=12), flush=True)
-    # kernels only: an aten op's self device time repeats its kernels'
-    kern = [e for e in ka
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / len(xbs) / 1e3
-    n_kern = sum(e.count for e in kern) / len(xbs)
-    # the hand-written kernels' own device time, without the wrapper's
-    # host cost that phase 3's events include
-    for e in kern:
-        name = next((k for k in ("pfb_branch", "linrec", "sr_latch")
-                     if f"{k}_kernel" in e.key), None)
-        if name:
-            print(f"  {name} kernel: {e.count} launches, device "
-                  f"{e.self_device_time_total / e.count:.3f} us each",
-                  flush=True)
-    print(f"profiled step ({len(xbs)} steps): {n_kern:.0f} kernels, "
-          f"device busy {busy_ms:.3f} ms, host wall {wall * 1e3:.3f} ms, "
-          f"device idle share {max(0.0, 1 - busy_ms / 1e3 / wall):.3f}",
-          flush=True)
-
-
-def timed_steps(bank, xbs):
-    """CUDA-event time of bank.step_device per block, each step under
-    sync debug mode "error" (any blocking copy or stream sync inside it
-    raises). Returns (outputs, ms per step)."""
-    import torch
-    outs, step_ms = [], []
-    for xb in xbs:
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            outs.append(bank.step_device(xb))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        b.record()
-        b.synchronize()
-        step_ms.append(a.elapsed_time(b))
-    return outs, step_ms
-
-
 def chan64_cuda_vs_cpu_phase():
     import numpy as np
     import torch
@@ -629,6 +579,7 @@ def chan64_cuda_vs_cpu_phase():
     from pysdr_tpu_torch import app
     from pysdr_tpu_torch.models.channelizer_bank import ChannelizerBank
     from pysdr_tpu_torch.ops import cplx
+    from pysdr_tpu_torch.runtime.profiler import profile_steps, timed_steps
 
     args = app.build_parser().parse_args(
         ["--device", "cuda", *CHAN64, "--audio-wire", "f32"])
@@ -1097,6 +1048,37 @@ def host_surface_phase(tmp):
     print(f"stage_report ms/block: {rep}", flush=True)
 
 
+def bench_phase():
+    """Phase 12: the port's bench at --quick in a child process; returns
+    its last line."""
+    import torch
+    p = subprocess.run([sys.executable, "-m", "pysdr_tpu_torch.bench",
+                        "--quick"], capture_output=True, text=True,
+                       timeout=900, cwd=ROOT)
+    for ln in p.stderr.splitlines():
+        if ln.startswith(("# ", "bench:", "profiled step")):
+            print(ln[:400], flush=True)
+    lines = p.stdout.strip().splitlines()
+    check(p.returncode == 0 and lines, f"bench --quick exited "
+          f"{p.returncode}\n{p.stderr[-2000:]}")
+    res = json.loads(lines[-1])
+    extra = res["extra"]
+    check(res["metric"] == "rf_samples_per_s_4ch_bank"
+          and isinstance(res["value"], float), f"bench line: {lines[-1]}")
+    from pysdr_tpu_torch.bench import CONFIGS, failed_checks
+    for name in CONFIGS:
+        entry = extra.get(name, {"error": "missing"})
+        check("error" not in entry and not failed_checks(entry),
+              f"bench config {name}: {entry}")
+    kind = torch.cuda.get_device_name(0)
+    check(extra["device"]["name"] == kind, f"bench ran on "
+          f"{extra['device']}, not {kind}")
+    src = extra["e2e_suite"]["end_to_end_bank4"]["source"]
+    check(src == "NativeStreamer", f"bench's bank4 replay read through "
+          f"{src}, not the C++ streamer")
+    return lines[-1]
+
+
 def run():
     try:
         import torch
@@ -1161,6 +1143,8 @@ def run():
     with tempfile.TemporaryDirectory() as tmp:
         phase("11 host surface")
         host_surface_phase(tmp)
+    phase("12 bench")
+    bench_line = bench_phase()
 
     # of this repository, only the port ran: no JAX, no pysdr_tpu module
     jaxish = sorted(m for m in sys.modules if m in ("jax", "pysdr_tpu")
@@ -1184,6 +1168,7 @@ def run():
                      "device_us": first["device_us"],
                      "bound_us": first["bound_ms"] * 1e3})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
+    print(bench_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -27,7 +27,7 @@ import sys
 import time
 
 
-def _power_limit() -> str | None:
+def power_limit() -> str | None:
     """`name, power.limit` of the first card from nvidia-smi, or None."""
     if shutil.which("nvidia-smi") is None:
         return None
@@ -60,7 +60,7 @@ def probe_devices(device: str = "cuda", n_devices: int = 0) -> int:
             print(f"  device[cuda:{i}] {p.name} sm_{p.major}{p.minor} "
                   f"{p.multi_processor_count} SMs "
                   f"{p.total_memory / 2 ** 30:.1f} GiB")
-        smi = _power_limit()
+        smi = power_limit()
         if smi is not None:
             print(f"  nvidia-smi: {smi}")
         if n_devices > have:

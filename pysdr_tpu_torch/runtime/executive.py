@@ -33,6 +33,17 @@ from pysdr_tpu_torch.runtime.profiler import BlockProfiler
 from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
 
 
+def upload(q: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host wire block onto `device`: on a card, copied into pinned
+    memory (PyTorch's caching host allocator) and issued as a non_blocking
+    copy; on the CPU, the block itself."""
+    if device.type != "cuda":
+        return q
+    pinned = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
+    pinned.copy_(q)
+    return pinned.to(device, non_blocking=True)
+
+
 def start_host_copy(audio_w):
     """Start a step's audio wire (a tensor, or a tuple of one a shard)
     copying to the host right after dispatch (the reference's
@@ -110,11 +121,12 @@ class Executive:
         self.last_rf_block: np.ndarray | None = None
         # the drained block's baseband: a device tensor (n_rx, out_block)
         self.drained_bb = None
-        # mean ms/block per stage: read = host source + quantize, upload =
-        # host->device issue, dispatch = device step issue, drain = result
-        # pull + sinks
-        self.stage_ms = {"read": 0.0, "upload": 0.0, "dispatch": 0.0,
-                         "drain": 0.0}
+        # mean ms/block per stage: read = host source, upload = quantize
+        # (the host's wire quantization) + pin+issue (the copy into pinned
+        # memory and the host->device issue), dispatch = device step issue,
+        # drain = result pull + sinks
+        self.stage_ms = {"read": 0.0, "upload": 0.0, "quantize": 0.0,
+                         "pin+issue": 0.0, "dispatch": 0.0, "drain": 0.0}
 
     def stage_report(self) -> dict:
         n = max(1, self.n_blocks)
@@ -169,19 +181,18 @@ class Executive:
         t1 = time.perf_counter()
         q = torch.from_numpy(np.ascontiguousarray(
             cplx.quantize_host(pair[0], self.wire)))
-        dev = self.bank.device
-        if dev.type == "cuda":
-            pinned = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
-            pinned.copy_(q)
-            xb = pinned.to(dev, non_blocking=True)
-        else:
-            xb = q
-        self.stage_ms["upload"] += (time.perf_counter() - t1) * 1e3
+        t2 = time.perf_counter()
+        xb = upload(q, self.bank.device)
+        t3 = time.perf_counter()
+        self.stage_ms["quantize"] += (t2 - t1) * 1e3
+        self.stage_ms["pin+issue"] += (t3 - t2) * 1e3
+        self.stage_ms["upload"] += (t3 - t1) * 1e3
         return xb, pair[1]
 
     def _pf_loop(self):
-        # each stage_ms key has one writer thread (read/upload here when
-        # prefetch is on, dispatch/drain on the executive thread)
+        # each stage_ms key has one writer thread (read, upload, quantize
+        # and pin+issue here when prefetch is on, dispatch and drain on
+        # the executive thread)
         while not self._stop.is_set():
             if not self._pf_active.wait(timeout=0.2):
                 continue           # paused between run() calls

@@ -8,12 +8,18 @@ The port's own copy of BlockProfiler from pysdr_tpu/runtime/profiler.py.
 Its `jax_trace` becomes `torch_trace`, a torch.profiler trace of the run
 (`--jax-trace DIR`); `Stopwatch`, which the port does not use, is left
 out.
+
+`timed_steps` and `profile_steps` time a bank's device step on the card
+(CUDA events; torch.profiler's kernel time against the host's wall
+time): the step measurements that chip_smoke.py and pysdr_tpu_torch.bench
+share, the counterpart of the JAX package's probes/profile_device_step.py.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 
 
@@ -85,3 +91,72 @@ def torch_trace(log_dir: str):
         yield prof
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}.json"))
+
+
+def timed_steps(bank, xbs):
+    """CUDA-event time of bank.step_device per block, each step under
+    sync debug mode "error" (any blocking copy or stream sync inside it
+    raises). Returns (outputs, ms per step)."""
+    import torch
+    outs, step_ms = [], []
+    for xb in xbs:
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(bank.step_device(xb))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    return outs, step_ms
+
+
+# the hand-written kernels whose own device time profile_steps prints
+HAND_KERNELS = ("pfb_branch", "linrec", "sr_latch")
+
+
+def profile_steps(bank, xbs, out=None) -> dict:
+    """torch.profiler over bank.step_device on each block of xbs: prints
+    the profiler's table, each hand kernel's launches and device time, and
+    a summary line to `out` (default stdout). Busy is the kernels' self
+    device time; the idle share is 1 - busy / the host's wall time a step.
+    Returns {kernels_per_step, device_busy_ms, host_wall_ms,
+    device_idle_share}."""
+    import torch
+    out = out or sys.stdout
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for xb in xbs:
+            bank.step_device(xb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(xbs)
+    ka = prof.key_averages()
+    print(ka.table(sort_by="device_time_total", row_limit=12), file=out,
+          flush=True)
+    # kernels only: an aten op's self device time repeats its kernels'
+    kern = [e for e in ka
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / len(xbs) / 1e3
+    n_kern = sum(e.count for e in kern) / len(xbs)
+    # the hand-written kernels' own device time, without the wrapper's
+    # host cost that CUDA events around a call include
+    for e in kern:
+        name = next((k for k in HAND_KERNELS if f"{k}_kernel" in e.key),
+                    None)
+        if name:
+            print(f"  {name} kernel: {e.count} launches, device "
+                  f"{e.self_device_time_total / e.count:.3f} us each",
+                  file=out, flush=True)
+    idle = max(0.0, 1 - busy_ms / 1e3 / wall)
+    print(f"profiled step ({len(xbs)} steps): {n_kern:.0f} kernels, "
+          f"device busy {busy_ms:.3f} ms, host wall {wall * 1e3:.3f} ms, "
+          f"device idle share {idle:.3f}", file=out, flush=True)
+    return {"kernels_per_step": n_kern, "device_busy_ms": busy_ms,
+            "host_wall_ms": wall * 1e3, "device_idle_share": idle}

@@ -266,6 +266,7 @@ def test_every_module_imports_without_jax():
         "pysdr_tpu_torch." + os.path.relpath(os.path.join(d, f), pkg)
         [:-3].replace(os.sep, ".").replace(".__init__", "")
         for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py"))
+    assert "pysdr_tpu_torch.bench" in mods
     script = NO_JAX + textwrap.dedent(f"""
         import importlib
         for m in {mods!r}:
@@ -294,6 +295,24 @@ def test_cli_runs_without_the_jax_package(tmp_path):
     assert out.returncode == 0 and "clean exit" in out.stdout, report
     assert "2 blocks" in out.stdout and "2 RX" in out.stdout, report
     assert (tmp_path / "am_rx0.wav").exists(), report
+
+
+def test_bench_runs_without_the_jax_package(tmp_path):
+    """Every config of `python -m pysdr_tpu_torch.bench` at --device cpu
+    --quick in one process, with jax and every pysdr_tpu module refused:
+    the imports inside its functions reach neither."""
+    script = NO_JAX + textwrap.dedent(f"""
+        import os
+        from pysdr_tpu_torch import bench
+        os.chdir({str(tmp_path)!r})
+        for name in bench.CONFIGS:
+            assert bench.main([name, "--device", "cpu", "--quick"]) == 0
+        """) + NO_JAX_LOADED + "print('clean exit')\n"
+    out, report = run_cli("-c", script, timeout=600)
+    assert out.returncode == 0 and "clean exit" in out.stdout, report
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    assert len(lines) == 5 and "end_to_end_bank4" in lines[3], report
 
 
 # ---- the RTTY decoder in the app ----
