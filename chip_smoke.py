@@ -64,9 +64,22 @@ Phases, each of which must pass (exit 1 on the first failure):
      at --pipeline-depth 2 prints stage_report() and its drain ms a block.
  12. bench: `python -m pysdr_tpu_torch.bench --quick` as a child on the
      card (every config at full width, 2 repetitions): its last line
-     parses, each of its five configs has no error and no failed output
-     check, it names this card, and the bank4 replay read through the C++
+     parses, each of its configs (the device-only ones graphed and each
+     with its eager twin) has no error and no failed output check, it
+     names this card, and the bank4 replay read through the C++
      streamer; its JSON line is printed before the kernels line.
+ 13. graph: bank4 (phase 4's layout, i8 RF), modes1ch (the bench's, f32,
+     AM -> NFM + squelch -> USB between blocks) and chan64 (phase 7's
+     layout, i8, 12288-sample audio blocks), each bank's
+     step as a CUDA graph replay against an eager twin (graph=False) over
+     64 blocks, past sr_latch's 31-launch epoch wrap: every block's audio
+     wire and every state tensor bit-equal, one graph a bank; then the
+     CUDA-event ms a step both ways, and torch.profiler's kernels a step,
+     busy ms and idle share of both (the profiled window's, and the busy
+     ms against the untraced event ms).
+
+The banks of phases 4-12 run as the app runs them: on the card each
+step is one CUDA graph replay a block (models/graphstep).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches summed over the paths' runs (phases 4,
@@ -151,6 +164,7 @@ RTTY_FS = 96e3
 RTTY_BLOCK = 24576                     # 256 ms of baseband a block
 RTTY_UP, RTTY_DOWN = 64, 3             # 96 kHz -> an RTL rate, 2.048 MHz
 RTTY_SHIFT = 120e3                     # the RX's offset from the center
+GRAPH_BLOCKS = 64                      # phase 13: past sr_latch's wrap at 31
 T0 = time.perf_counter()               # the phases print their start
 
 
@@ -1079,6 +1093,146 @@ def bench_phase():
     return lines[-1]
 
 
+def graph_banks(kind, graph):
+    """Phase 13's banks: bank4 (phase 4's layout, i16 audio), modes1ch
+    (the bench's: 1 RX at 2.048 MHz, out_block 16384, f32 audio) and
+    chan64 (phase 7's layout: out_block 12288, mu-law i8 audio, squelch
+    10 dB). Returns (bank, its RF wire)."""
+    from pysdr_tpu_torch import app
+    from pysdr_tpu_torch.config import PipelineConfig, ReceiverConfig
+    from pysdr_tpu_torch.models.channelizer_bank import ChannelizerBank
+    from pysdr_tpu_torch.models.receiver import ReceiverBank
+    from pysdr_tpu_torch.tables import Mode
+    if kind == "bank4":
+        cfg = app.build_config(app.build_parser().parse_args(BANK4))
+        return ReceiverBank(cfg, audio_wire="i16", device="cuda",
+                            graph=graph), "i8"
+    if kind == "modes1ch":
+        cfg = PipelineConfig(fs_in=2.048e6, fs_out=48e3, out_block=16384,
+                             foffset_hz=120e3, receivers=(
+                                 ReceiverConfig(fc_hz=100e6,
+                                                mode=Mode.AM),))
+        return ReceiverBank(cfg, audio_wire="f32", device="cuda",
+                            graph=graph), "f32"
+    _, _, cfg = app.build_channelizer(app.build_parser().parse_args(
+        ["--device", "cuda", *CHAN64]))
+    return ChannelizerBank(cfg, audio_wire="i8", device="cuda",
+                           graph=graph), "i8"
+
+
+def modes1ch_controls(bank, k):
+    """modes1ch's three modes, as params writes between blocks: AM, then
+    NFM with squelch 10 dB, then USB with AGC."""
+    from pysdr_tpu_torch.tables import Mode
+    if k == 21:
+        bank.set_mode(0, Mode.NFM)
+        bank.set_squelch(0, 10.0)
+    elif k == 42:
+        bank.set_mode(0, Mode.USB)
+        bank.set_squelch(0, -150.0)
+
+
+def wire_blocks(n, wire, count, seed=0):
+    """count (n, 2) RF wire blocks made on the card from a seeded
+    generator: normals of rms 0.3, quantized as the host would."""
+    import torch
+
+    from pysdr_tpu_torch.ops import cplx
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(count):
+        x = 0.3 * torch.randn((n, 2), generator=gen, device="cuda")
+        if wire != "f32":
+            sc = cplx.WIRE_SCALES[wire]
+            x = torch.clamp(torch.round(x * sc), -sc, sc).to(
+                torch.int8 if wire == "i8" else torch.int16)
+        out.append(x)
+    return out
+
+
+def step_ms(bank, xbs, iters=20):
+    """CUDA-event ms a step over `iters` back-to-back steps, after 3."""
+    import torch
+    for i in range(3):
+        bank.step_device(xbs[i % len(xbs)])
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(iters):
+        bank.step_device(xbs[i % len(xbs)])
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def graph_phase():
+    """Phase 13: bank4's, modes1ch's and chan64's step (graph_banks) as a
+    CUDA graph replay against an eager twin (graph=False) over
+    GRAPH_BLOCKS blocks, past sr_latch's 31-launch epoch wrap: every
+    block's audio wire and every state tensor bit-equal, one graph
+    (modes1ch across its three modes); then the CUDA-event ms a step both
+    ways and each step's torch.profiler kernels, busy ms and idle share."""
+    import io
+
+    import torch
+
+    from pysdr_tpu_torch.device import leaves
+    from pysdr_tpu_torch.runtime.profiler import profile_steps
+
+    out = {}
+    for kind in ("bank4", "modes1ch", "chan64"):
+        g, wire = graph_banks(kind, True)
+        e, _ = graph_banks(kind, False)
+        n = g.design.in_block
+        xbs = wire_blocks(n, wire, 8)
+        t0 = time.perf_counter()
+        for k in range(GRAPH_BLOCKS):
+            if kind == "modes1ch":
+                modes1ch_controls(g, k)
+                modes1ch_controls(e, k)
+            a_g = g.step_device(xbs[k % 8])
+            a_e = e.step_device(xbs[k % 8])
+            torch.cuda.synchronize()
+            check(torch.equal(a_g, a_e), f"{kind} block {k}: the graph's "
+                  "audio differs from the eager step's")
+            for i, (sg, se) in enumerate(zip(leaves(g.state),
+                                             leaves(e.state))):
+                check(torch.equal(sg, se), f"{kind} block {k}: state "
+                      f"tensor {i} differs from the eager step's")
+        check(g.graph_count == 1 and e.graph_count == 0,
+              f"{kind}: {g.graph_count} graphs")
+        print(f"{kind} ({wire} RF wire): {GRAPH_BLOCKS} blocks graphed and "
+              f"eager bit-equal (audio and state), {g.graph_count} graph, "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        ms_g, ms_e = step_ms(g, xbs), step_ms(e, xbs)
+        res = {"step_ms_graph": ms_g, "step_ms_eager": ms_e,
+               "msps_graph": n / ms_g / 1e3, "msps_eager": n / ms_e / 1e3}
+        for tag, bank in (("graph", g), ("eager", e)):
+            table = io.StringIO()
+            prof = profile_steps(bank, xbs, out=table)
+            line = table.getvalue().strip().splitlines()[-1]
+            print(f"  {tag}: {line}", flush=True)
+            for key in ("kernels_per_step", "device_busy_ms",
+                        "device_idle_share"):
+                res[f"{key}_{tag}"] = prof[key]
+            res[f"device_idle_share_events_{tag}"] = max(
+                0.0, 1 - prof["device_busy_ms"] / res[f"step_ms_{tag}"])
+        print(f"  step (events): graph {ms_g:.3f} ms = "
+              f"{res['msps_graph']:.1f} Msamp/s, eager {ms_e:.3f} ms = "
+              f"{res['msps_eager']:.1f} Msamp/s; a replay "
+              f"{res['kernels_per_step_graph']:.0f} kernels, busy "
+              f"{res['device_busy_ms_graph']:.3f} ms, idle share "
+              f"{res['device_idle_share_graph']:.3f} (profiled window), "
+              f"{res['device_idle_share_events_graph']:.3f} (busy over "
+              "event ms)", flush=True)
+        check(res["kernels_per_step_graph"] > 0
+              and res["device_busy_ms_graph"] > 0,
+              f"{kind}: torch.profiler saw no kernel of the graph")
+        out[kind] = res
+    print("graph phase: " + json.dumps(out), flush=True)
+    return out
+
+
 def run():
     try:
         import torch
@@ -1145,6 +1299,8 @@ def run():
         host_surface_phase(tmp)
     phase("12 bench")
     bench_line = bench_phase()
+    phase("13 graph")
+    graph_phase()
 
     # of this repository, only the port ran: no JAX, no pysdr_tpu module
     jaxish = sorted(m for m in sys.modules if m in ("jax", "pysdr_tpu")

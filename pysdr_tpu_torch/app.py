@@ -879,6 +879,8 @@ class App:
         from pysdr_tpu_torch.runtime.profiler import torch_trace
         trace = (torch_trace(self.args.jax_trace) if self.args.jax_trace
                  else contextlib.nullcontext())
+        # the step's capture first, before any service thread or trace
+        self.ex.prepare()
         self.start_services()
         try:
             with trace:

@@ -22,7 +22,10 @@ Device-only configs (bank4, modes1ch's three modes, chan64) time `reps`
 windows of `iters` back-to-back steps on the host's clock, each window
 ending in a synchronize, with CUDA events around the same window (ms a
 step), then profile one separate window with torch.profiler (kernels a
-step, busy ms, idle share; runtime/profiler.profile_steps). The e2e
+step, busy ms, idle share; runtime/profiler.profile_steps). Their steps
+are CUDA graph replays, as the app runs them; each has an eager twin
+(`bank4_eager`, `modes1ch_eager`, `chan64_eager`: the same bank built
+with graph=False), so one run reads both. The e2e
 suite replays .dat files through the App's executive per wire format and
 checks its output: the RX nearest the file's AM station carries the
 station's 400 Hz tone >= 40 dB over the spectral floor, else that entry
@@ -61,6 +64,9 @@ CONFIGS = {   # name -> (timeout_s, description), as the root bench.py
                       "(BASELINE configs 1-3, one bank)"),
     "chan64": (520, "64-channel polyphase channelizer + demod at "
                     "12.288 MHz (BASELINE config 5)"),
+    "bank4_eager": (520, "bank4 with its step run eagerly (graph=False)"),
+    "modes1ch_eager": (520, "modes1ch with its step run eagerly"),
+    "chan64_eager": (520, "chan64 with its step run eagerly"),
     "e2e_suite": (1500, "host replay -> card bank -> host audio over "
                         "f32/i16/i8 wires + bank4 and 64-ch end to end"),
     "host_source": (240, "replay-file host feeding rate: C++ streamer vs "
@@ -158,20 +164,28 @@ def _rand_blocks(in_block, st: Settings, n=4):
 
 def _device_only(bank, blocks, in_block, st: Settings) -> dict:
     """The timed windows, then one profiled window of a step per block
-    (on the card; the profile keys are None on the CPU)."""
+    (on the card; the profile keys are None on the CPU). `graphs`: the
+    CUDA graphs the bank has captured by then (0 eager and on the CPU);
+    `device_idle_share_events`: 1 - busy ms / step_ms_events."""
     rates, ev_ms = _measure(bank.step_device, blocks, st)
     res = _sps_stats(rates, in_block)
     res["step_ms_events"] = statistics.median(ev_ms) if ev_ms else None
+    res["graphs"] = bank.graph_count
     if st.on_card:
         from pysdr_tpu_torch.runtime.profiler import profile_steps
         res.update(profile_steps(bank, blocks, out=sys.stderr))
+        # the same busy time against the untraced windows' event ms: the
+        # profiler's own host cost is not in it
+        res["device_idle_share_events"] = max(
+            0.0, 1 - res["device_busy_ms"] / res["step_ms_events"])
     else:
         res.update(dict.fromkeys(PROFILE_KEYS))
+        res["device_idle_share_events"] = None
     return res
 
 
 def _bank(st: Settings, fs_in, modes, out_block, spacing=500e3,
-          foffset=750e3, squelch_db=-150.0):
+          foffset=750e3, squelch_db=-150.0, graph=True):
     from pysdr_tpu_torch.config import PipelineConfig, ReceiverConfig
     from pysdr_tpu_torch.models.receiver import ReceiverBank
     fc0 = 100e6
@@ -182,26 +196,27 @@ def _bank(st: Settings, fs_in, modes, out_block, spacing=500e3,
     cfg = PipelineConfig(fs_in=fs_in, fs_out=48e3,
                          out_block=st.size(out_block), foffset_hz=foffset,
                          receivers=rxs)
-    return ReceiverBank(cfg, device=st.device)
+    return ReceiverBank(cfg, device=st.device, graph=graph)
 
 
-def bench_bank4(st: Settings) -> dict:
+def bench_bank4(st: Settings, graph=True) -> dict:
     from pysdr_tpu_torch.tables import Mode
     bank = _bank(st, 8e6, [Mode.AM, Mode.NFM, Mode.USB, Mode.CW],
-                 out_block=24576)
+                 out_block=24576, graph=graph)
     d = bank.design
     res = _device_only(bank, _rand_blocks(d.in_block, st), d.in_block, st)
     res.update({"in_block": d.in_block, "n_rx": 4})
     return res
 
 
-def bench_modes1ch(st: Settings) -> dict:
+def bench_modes1ch(st: Settings, graph=True) -> dict:
     """BASELINE configs 1-3 on one bank: mode, squelch and AGC are params,
-    so the three configs are params swaps (set_mode / set_squelch)."""
+    so the three configs are params writes (set_mode / set_squelch) and
+    replay one graph."""
     from pysdr_tpu_torch.tables import Mode
     t_c0 = time.perf_counter()
     bank = _bank(st, 2.048e6, [Mode.AM], out_block=16384, spacing=0,
-                 foffset=120e3)
+                 foffset=120e3, graph=graph)
     d = bank.design
     blocks = _rand_blocks(d.in_block, st)
     out = {}
@@ -216,7 +231,7 @@ def bench_modes1ch(st: Settings) -> dict:
     return out
 
 
-def bench_chan64(st: Settings) -> dict:
+def bench_chan64(st: Settings, graph=True) -> dict:
     from pysdr_tpu_torch.models.channelizer_bank import (
         ChannelizerBank, ChannelizerBankConfig, ChannelSettings)
     from pysdr_tpu_torch.tables import Mode
@@ -225,7 +240,7 @@ def bench_chan64(st: Settings) -> dict:
         fs_in=n * 192e3, n_channels=n, fs_out=48e3,
         out_block=st.size(3072), fc_hz=100e6,
         channels=tuple(ChannelSettings(mode=Mode.AM) for _ in range(n)))
-    cb = ChannelizerBank(cfg, device=st.device)
+    cb = ChannelizerBank(cfg, device=st.device, graph=graph)
     in_block = cb.design.in_block
     res = _device_only(cb, _rand_blocks(in_block, st), in_block, st)
     res.update({"in_block": in_block, "n_channels": n, "fs_in": cfg.fs_in})
@@ -515,8 +530,11 @@ def bench_host_source(st: Settings) -> dict:
 
 
 BENCHES = {"bank4": bench_bank4, "modes1ch": bench_modes1ch,
-           "chan64": bench_chan64, "e2e_suite": bench_e2e_suite,
-           "host_source": bench_host_source}
+           "chan64": bench_chan64,
+           "bank4_eager": lambda st: bench_bank4(st, graph=False),
+           "modes1ch_eager": lambda st: bench_modes1ch(st, graph=False),
+           "chan64_eager": lambda st: bench_chan64(st, graph=False),
+           "e2e_suite": bench_e2e_suite, "host_source": bench_host_source}
 
 
 def run_config(name: str, st: Settings) -> dict:

@@ -19,17 +19,34 @@
 //    loads (scalar ones where a row starts unaligned), and the scan
 //    inside the tile is per-thread runs, warp shuffles and one
 //    shared-memory pass over the warps' totals.
-//  * Tiles carry into each other by decoupled look-back: a tile publishes
-//    its local aggregate, then its inclusive prefix, to status words;
-//    its successor reads up to 32 predecessors at once with one warp and
-//    composes aggregates back to the nearest inclusive prefix.
+//  * Tiles carry into each other by look-back over status words, read
+//    32 predecessors at a time by one warp. linrec: tile 0 publishes its
+//    inclusive prefix (it holds y_prev), every other tile its local
+//    aggregate, and a tile composes the aggregates of all its
+//    predecessors onto tile 0's prefix in a fixed order, so its float
+//    rounding does not depend on which predecessor finished first and a
+//    launch gives the same bits every time. sr_latch: a tile with any
+//    command, and tile 0, publish a final command at once; a tile
+//    without one looks back to the nearest final one (integers: any
+//    order gives the same bits).
 //  * Every status word holds its own tag (the launch's epoch and the
 //    state) beside its value, and is written by one 64-bit (linrec) or
 //    8-bit (sr_latch) store, which the card makes single-copy atomic: a
 //    reader that sees the tag sees the value, so no fence orders a value
 //    before a flag. A word of an earlier launch reads as "not ready", so
-//    the buffer is never cleared between launches; the wrapper zeroes it
-//    only when the epoch wraps.
+//    the buffer is never cleared between launches.
+//  * The epoch lives on the card, in the launch's control words beside
+//    the row tickets (`ctl`): every block reads it when it starts, and
+//    the block that finishes last (a counter of finished blocks) bumps
+//    it for the next launch; when it reaches the largest epoch the tag
+//    holds, that block also zeroes the whole status buffer and the
+//    epoch starts again at 1. So a launch takes nothing from the host
+//    that changes from call to call, and a launch captured in a CUDA
+//    graph and replayed is as right as an eager one. (The other choice,
+//    clearing the launch's status words on the stream before each
+//    launch, would add a memset node to every launch.) Launches on one
+//    control buffer must run one after another, as launches on one
+//    stream, or one graph's replays, do.
 //  * The tile length is a template argument: the wrapper takes the longer
 //    tile where it still gives >= 128 blocks (kernels/scan.py).
 
@@ -56,8 +73,9 @@ struct Tile {
   }
 };
 // status: three 64-bit words a (row, column, tile), each (tag << 32 |
-// float bits) with tag = epoch << 2 | state: the aggregate's a, its b,
-// and the inclusive prefix's b (a prefix's a is never needed)
+// float bits) with tag = epoch << 2 | state: the aggregate's a, its b
+// (tiles 1 on), and tile 0's inclusive prefix's b (its a is never
+// needed)
 constexpr unsigned kAggregate = 1, kPrefix = 2;
 
 struct Pair {   // the map y -> a*y + b
@@ -83,6 +101,49 @@ __device__ __forceinline__ void st_word(unsigned long long* p,
       (unsigned long long)tag << 32 | __float_as_uint(x);
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
                :: "l"(p), "l"(v) : "memory");
+}
+
+// ---- a launch's control words: ctl[0] the epoch count e (this launch
+// tags its words e + 1), ctl[1] the blocks of this launch that finished,
+// ctl[2 + r] the tile ticket of row r. All 0 in a new buffer, and each
+// launch leaves ctl[1] and the tickets at 0.
+constexpr int kCtlTickets = 2;
+
+// Thread 0, when the block starts: this launch's epoch (1..max_epoch).
+__device__ __forceinline__ unsigned read_epoch(const unsigned* ctl) {
+  unsigned e;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(e) : "l"(ctl) : "memory");
+  return e + 1;
+}
+
+// Every thread of the block, after the block's last access to the status
+// words. The block that finishes last moves the epoch on for the next
+// launch; at max_epoch it zeroes all `n_words` status words first and
+// the next launch starts again at epoch 1. Every other block of the
+// launch has finished, so none reads a word while it is cleared.
+template <class Word>
+__device__ __forceinline__ void finish_launch(unsigned* ctl, Word* words,
+                                              long long n_words,
+                                              unsigned epoch,
+                                              unsigned max_epoch,
+                                              int* s_last) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *s_last = atomicAdd(ctl + 1, 1u) == gridDim.x - 1;
+    if (*s_last) __threadfence();
+  }
+  __syncthreads();
+  if (!*s_last) return;
+  const bool wrap = epoch >= max_epoch;
+  if (wrap)
+    for (long long i = threadIdx.x; i < n_words; i += blockDim.x)
+      words[i] = 0;
+  if (threadIdx.x == 0) {
+    ctl[1] = 0;
+    ctl[0] = wrap ? 0u : epoch;
+  }
 }
 
 // Thread 0: this block's (row, tile). Blocks b, b + batch, ... share row
@@ -147,41 +208,38 @@ __device__ __forceinline__ void store_tile(const float* src, int m,
     __stcs(dst + e, src[T::idx(e / K, e % K)]);
 }
 
-// One warp: the composite of every sample of this column before `tile`,
-// from the status of tiles tile-1, tile-2, ... (lane i reads tile t-i of
-// the current window). `row0` points at tile 0's words of this (row,
+// One warp: the composite of every sample of this column before `tile`:
+// tile 0's inclusive prefix, then the aggregates of tiles 1 .. tile-1,
+// composed in windows of 32 (lane i reads tile t-i of the window) by the
+// same shuffle tree whatever the timing, so the result is one fixed
+// function of the inputs. `row0` points at tile 0's words of this (row,
 // column). The value is the same in every lane.
 __device__ Pair linrec_lookback(const unsigned long long* row0, int tile,
                                 unsigned epoch, int lane) {
   const unsigned agg_tag = epoch << 2 | kAggregate;
   const unsigned pre_tag = epoch << 2 | kPrefix;
   Pair acc = {1.f, 0.f};   // composite of the later tiles already read
-  for (int t = tile - 1;; t -= 32) {
+  for (int t = tile - 1; t >= 0; t -= 32) {
     const int mine = t - lane;
     const unsigned long long* w = row0 + 3 * (size_t)max(mine, 0);
-    unsigned state = 0;
+    bool ready = mine < 0;
     Pair v = {1.f, 0.f};
     for (;;) {
-      if (mine >= 0 && state == 0) {
+      if (!ready && mine == 0) {
         const unsigned long long p = ld_word(w + 2);
         if (tag_of(p) == pre_tag) {
-          state = kPrefix;
+          ready = true;
           v = {1.f, value_of(p)};
-        } else {
-          const unsigned long long wa = ld_word(w), wb = ld_word(w + 1);
-          if (tag_of(wa) == agg_tag && tag_of(wb) == agg_tag) {
-            state = kAggregate;
-            v = {value_of(wa), value_of(wb)};
-          }
+        }
+      } else if (!ready) {
+        const unsigned long long wa = ld_word(w), wb = ld_word(w + 1);
+        if (tag_of(wa) == agg_tag && tag_of(wb) == agg_tag) {
+          ready = true;
+          v = {value_of(wa), value_of(wb)};
         }
       }
-      if (__all_sync(kFull, mine < 0 || state != 0)) break;
+      if (__all_sync(kFull, ready)) break;
     }
-    // tile 0 always publishes its prefix, so lanes before it never count
-    const unsigned pmask = __ballot_sync(kFull, state == kPrefix);
-    const int first = pmask ? __ffs(pmask) - 1 : 32;
-    // the tiles after the nearest prefix give their aggregates
-    if (lane > first || mine < 0) v = {1.f, 0.f};
     // lane 0 <- v[31] then ... then v[0]: higher lanes are earlier tiles
     for (int off = 1; off < 32; off <<= 1) {
       const Pair o = {__shfl_down_sync(kFull, v.a, off),
@@ -190,8 +248,8 @@ __device__ Pair linrec_lookback(const unsigned long long* row0, int tile,
     }
     acc = compose({__shfl_sync(kFull, v.a, 0), __shfl_sync(kFull, v.b, 0)},
                   acc);
-    if (pmask) return acc;
   }
+  return acc;
 }
 
 // y[i] = a[i] * y[i-1] + b[i] along n for every column of every row.
@@ -208,10 +266,12 @@ __device__ Pair linrec_lookback(const unsigned long long* row0, int tile,
 // the design does about it: b is read and y written once each, coalesced
 // through shared memory, a at stride 0 is read once a column; 512-sample
 // tiles put 192 blocks on bank4's 4 rows, 1024-sample ones 768 on
-// chan64's 64; no fence on the look-back's path. What still holds it
-// back: each block's chain of ticket, load, scan, look-back and store
-// leaves the memory idle between its phases, and the small shapes are
-// bound by the launch and the look-back chain.
+// chan64's 64; no fence on the look-back's path, which reads every
+// predecessor's aggregate (a warp-wide load of 32 at a time) and waits on
+// no predecessor's look-back. What still holds it back: each block's
+// chain of ticket, load, scan, look-back and store leaves the memory
+// idle between its phases, and the small shapes are bound by the launch
+// and the look-back.
 template <int K, int RUN>
 __global__ void __launch_bounds__(K * kColThreads)
 linrec_kernel(const float* __restrict__ a, float a_scalar, long long sa_b,
@@ -219,19 +279,24 @@ linrec_kernel(const float* __restrict__ a, float a_scalar, long long sa_b,
               const float* __restrict__ y_prev, float* __restrict__ y,
               float* __restrict__ y_last, int batch, int n,
               int tiles_per_row, unsigned long long* __restrict__ words,
-              unsigned* __restrict__ tickets, unsigned epoch) {
+              long long n_words, unsigned* __restrict__ ctl,
+              unsigned max_epoch) {
   using T = Tile<RUN>;
   __shared__ float s_b[K * T::kColStride];
   __shared__ float s_a[K * T::kColStride];
   __shared__ Pair s_warp[2 * K];
-  __shared__ Pair s_agg[K];
   __shared__ float s_carry[K];
-  __shared__ int s_row, s_tile;
+  __shared__ int s_row, s_tile, s_last;
+  __shared__ unsigned s_epoch;
+  unsigned* tickets = ctl + kCtlTickets;
 
-  if (threadIdx.x == 0)
+  if (threadIdx.x == 0) {
+    s_epoch = read_epoch(ctl);
     take_ticket(tickets, batch, tiles_per_row, &s_row, &s_tile);
+  }
   __syncthreads();
   const int row = s_row, tile = s_tile;
+  const unsigned epoch = s_epoch;
   const int s0 = tile * T::kLen;
   const int cnt = min(T::kLen, n - s0);
   const size_t base = ((size_t)row * n + s0) * K;
@@ -271,8 +336,8 @@ linrec_kernel(const float* __restrict__ a, float a_scalar, long long sa_b,
   Pair ex = {__shfl_up_sync(kFull, inc.a, 1), __shfl_up_sync(kFull, inc.b, 1)};
   if (lane == 0) ex = w == 1 ? s_warp[2 * c] : Pair{1.f, 0.f};
 
-  // publish: tile 0 its inclusive prefix at once, the others their
-  // aggregate (held by the column's last thread)
+  // publish: tile 0 its inclusive prefix, the others their aggregate
+  // (held by the column's last thread)
   unsigned long long* row0 = words + 3 * ((size_t)row * K + c) * tiles_per_row;
   unsigned long long* mine = row0 + 3 * (size_t)tile;
   if (j == kColThreads - 1) {
@@ -283,16 +348,12 @@ linrec_kernel(const float* __restrict__ a, float a_scalar, long long sa_b,
     } else {
       st_word(mine, epoch << 2 | kAggregate, inc.a);
       st_word(mine + 1, epoch << 2 | kAggregate, inc.b);
-      s_agg[c] = inc;
     }
   }
   __syncthreads();
   if (tile > 0 && w == 0) {
     const Pair e = linrec_lookback(row0, tile, epoch, lane);
-    if (lane == 0) {
-      st_word(mine + 2, epoch << 2 | kPrefix, compose(e, s_agg[c]).b);
-      s_carry[c] = e.b;
-    }
+    if (lane == 0) s_carry[c] = e.b;
   }
   __syncthreads();
 
@@ -307,6 +368,7 @@ linrec_kernel(const float* __restrict__ a, float a_scalar, long long sa_b,
   }
   __syncthreads();
   store_tile<K, T>(s_b, cnt * K, y + base);
+  finish_launch(ctl, words, n_words, epoch, max_epoch, &s_last);
 }
 
 // ---- sr_latch ----
@@ -364,7 +426,8 @@ sr_latch_kernel(const uint8_t* __restrict__ set,
                 const float* __restrict__ g_prev, float* __restrict__ gate,
                 float* __restrict__ gate_last, int batch, int n,
                 int tiles_per_row, uint8_t* __restrict__ status,
-                unsigned* __restrict__ tickets, unsigned epoch) {
+                long long n_words, unsigned* __restrict__ ctl,
+                unsigned max_epoch) {
   constexpr int kLen = 32 * W * kLatchRun;
   // the gate, staged for coalesced stores: a lane's 16 floats, padded to
   // 20 so that 8 lanes' float4 writes fall on 32 distinct banks
@@ -372,12 +435,17 @@ sr_latch_kernel(const uint8_t* __restrict__ set,
   __shared__ __align__(16) float s_gate[32 * W * kLanePad];
   __shared__ int s_warp[W];
   __shared__ int s_before;
-  __shared__ int s_row, s_tile;
+  __shared__ int s_row, s_tile, s_last;
+  __shared__ unsigned s_epoch;
+  unsigned* tickets = ctl + kCtlTickets;
   const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  if (threadIdx.x == 0)
+  if (threadIdx.x == 0) {
+    s_epoch = read_epoch(ctl);
     take_ticket(tickets, batch, tiles_per_row, &s_row, &s_tile);
+  }
   __syncthreads();
   const int row = s_row, tile = s_tile;
+  const unsigned epoch = s_epoch;
   const int cnt = min(kLen, n - tile * kLen);
   const size_t base = (size_t)row * n + (size_t)tile * kLen;
   const int first = threadIdx.x * kLatchRun;
@@ -472,6 +540,7 @@ sr_latch_kernel(const uint8_t* __restrict__ set,
   }
   for (int e = e0 + threadIdx.x; e < cnt; e += 32 * W)
     __stcs(G + e, s_gate[e / kLatchRun * kLanePad + e % kLatchRun]);
+  finish_launch(ctl, status, n_words, epoch, max_epoch, &s_last);
 }
 
 }  // namespace
@@ -480,31 +549,34 @@ extern "C" {
 
 // a: see linrec_kernel (null with a_mode 0); b, y: (batch, n, k) float32
 // contiguous, k in 1..4; y_prev, y_last: (batch, k); tile 512 or 1024.
-// words: at least 3 * batch * k * ceil(n / tile) u64; tickets: batch u32
-// counters, 0 at the launch (each launch leaves them 0); epoch in
-// 1..2^30-1, above the epoch of every word. Returns the cudaError_t of
-// the launch.
+// words: n_words u64, at least 3 * batch * k * ceil(n / tile), each 0 or
+// written by an earlier launch on this ctl; ctl: 2 + batch u32 control
+// words (above: all 0 in a new buffer, as each launch leaves them but
+// the epoch); max_epoch in 2..2^30-1, the same on every launch on this
+// ctl. Returns the cudaError_t of the launch.
 int pysdr_linrec_f32(const float* a, float a_scalar, long long sa_b,
                      long long sa_k, int a_mode, const float* b,
                      const float* y_prev, float* y, float* y_last,
                      int batch, int n, int k, int tile, void* words,
-                     void* tickets, unsigned epoch, void* stream) {
+                     long long n_words, void* ctl, unsigned max_epoch,
+                     void* stream) {
   if (batch < 1 || n < 1 || k < 1 || k > 4 ||
       (tile != Tile<8>::kLen && tile != Tile<16>::kLen) || a_mode < 0 ||
-      a_mode > 2 || (a_mode > 0 && a == nullptr) || epoch == 0 ||
-      epoch >= (1u << 30))
+      a_mode > 2 || (a_mode > 0 && a == nullptr) || max_epoch < 2 ||
+      max_epoch >= (1u << 30))
     return (int)cudaErrorInvalidValue;
   const int tiles = (n + tile - 1) / tile;
-  if ((long long)batch * tiles >= (1LL << 31))
+  if ((long long)batch * tiles >= (1LL << 31) ||
+      n_words < 3LL * batch * k * tiles)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(batch * tiles);
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* wd = (unsigned long long*)words;
-  unsigned* t = (unsigned*)tickets;
+  unsigned* c = (unsigned*)ctl;
 #define PYSDR_LINREC(K, RUN)                                                \
   linrec_kernel<K, RUN><<<grid, K * kColThreads, 0, s>>>(                   \
       a, a_scalar, sa_b, sa_k, a_mode, b, y_prev, y, y_last, batch, n,      \
-      tiles, wd, t, epoch)
+      tiles, wd, n_words, c, max_epoch)
 #define PYSDR_LINREC_K(RUN)            \
   switch (k) {                         \
     case 1: PYSDR_LINREC(1, RUN); break; \
@@ -523,28 +595,32 @@ int pysdr_linrec_f32(const float* a, float a_scalar, long long sa_b,
 }
 
 // set, reset: (batch, n) uint8 (0/1); g_prev, gate_last: (batch,); gate:
-// (batch, n) float32; tile 512 (one warp) or 2048 (four). status: at
-// least batch * ceil(n / tile) bytes; tickets as for linrec; epoch in
-// 1..31.
+// (batch, n) float32; tile 512 (one warp) or 2048 (four). status: n_words
+// bytes, at least batch * ceil(n / tile); ctl as for linrec; max_epoch in
+// 2..31.
 int pysdr_sr_latch_u8(const uint8_t* set, const uint8_t* reset,
                       const float* g_prev, float* gate, float* gate_last,
                       int batch, int n, int tile, void* status,
-                      void* tickets, unsigned epoch, void* stream) {
-  if (batch < 1 || n < 1 || (tile != 512 && tile != 2048) || epoch == 0 ||
-      epoch > 31)
+                      long long n_words, void* ctl, unsigned max_epoch,
+                      void* stream) {
+  if (batch < 1 || n < 1 || (tile != 512 && tile != 2048) ||
+      max_epoch < 2 || max_epoch > 31)
     return (int)cudaErrorInvalidValue;
   const int tiles = (n + tile - 1) / tile;
-  if ((long long)batch * tiles >= (1LL << 31))
+  if ((long long)batch * tiles >= (1LL << 31) ||
+      n_words < (long long)batch * tiles)
     return (int)cudaErrorInvalidValue;
   uint8_t* st = (uint8_t*)status;
-  unsigned* t = (unsigned*)tickets;
+  unsigned* c = (unsigned*)ctl;
   cudaStream_t s = (cudaStream_t)stream;
   if (tile == 512)
     sr_latch_kernel<1><<<batch * tiles, 32, 0, s>>>(
-        set, reset, g_prev, gate, gate_last, batch, n, tiles, st, t, epoch);
+        set, reset, g_prev, gate, gate_last, batch, n, tiles, st, n_words,
+        c, max_epoch);
   else
     sr_latch_kernel<4><<<batch * tiles, 128, 0, s>>>(
-        set, reset, g_prev, gate, gate_last, batch, n, tiles, st, t, epoch);
+        set, reset, g_prev, gate, gate_last, batch, n, tiles, st, n_words,
+        c, max_epoch);
   return (int)cudaGetLastError();
 }
 

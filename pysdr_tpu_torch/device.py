@@ -39,3 +39,24 @@ def map_tensors(fn, obj):
         return type(obj)(**{f.name: map_tensors(fn, getattr(obj, f.name))
                             for f in dataclasses.fields(obj)})
     return obj
+
+
+def leaves(obj) -> list:
+    """The tensors of a (nested) dataclass of tensors, in field order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj)
+                for t in leaves(getattr(obj, f.name))]
+    return []
+
+
+def copy_tensors(dst, src) -> None:
+    """Copy every tensor of the dataclass `src` into the same field of
+    `dst` (same structure), in place: dst's tensors keep their storage."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+        return
+    for f in dataclasses.fields(dst):
+        copy_tensors(getattr(dst, f.name), getattr(src, f.name))

@@ -27,3 +27,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn, _, _ in KERNELS}
+
+
+def add_launches(counts: dict) -> None:
+    """Add {wrapper name: launches} to the wrappers' counts: a replayed
+    graph's tally (build.capture_tally) at each replay."""
+    for fn, _, _ in KERNELS:
+        fn.launches += counts.get(fn.__name__, 0)

@@ -10,11 +10,14 @@ builds, and a missing nvcc or a failed build raises. ptxas's register
 and shared-memory report of each kernel is kept in `build_log`.
 
 `check_tensors` and `check_launch` are the checks every wrapper makes
-before and after its launch.
+before and after its launch; `count_launch` counts the launch, or, while
+a CUDA graph is captured under `capture_tally`, tallies it for the
+graph, whose every replay adds the tally (kernels.add_launches).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,10 +66,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     i64, f32 = ctypes.c_longlong, ctypes.c_float
     lib.pysdr_linrec_f32.argtypes = [ptr, f32, i64, i64, i32] + [ptr] * 4 \
-        + [i32] * 4 + [ptr] * 2 + [ctypes.c_uint, ptr]
+        + [i32] * 4 + [ptr, i64, ptr, ctypes.c_uint, ptr]
     lib.pysdr_linrec_f32.restype = i32
-    lib.pysdr_sr_latch_u8.argtypes = [ptr] * 5 + [i32] * 3 + [ptr] * 2 \
-        + [ctypes.c_uint, ptr]
+    lib.pysdr_sr_latch_u8.argtypes = [ptr] * 5 + [i32] * 3 \
+        + [ptr, i64, ptr, ctypes.c_uint, ptr]
     lib.pysdr_sr_latch_u8.restype = i32
     lib.pysdr_pfb_branch.argtypes = [ptr, i32, ctypes.c_float, ptr, ptr,
                                      ptr, ptr, i32, i32, i32, ptr]
@@ -156,3 +159,29 @@ def check_launch(rc: int, name: str) -> None:
     runs, and no later synchronize reports it)."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
+
+
+_tally = threading.local()
+
+
+def count_launch(fn) -> None:
+    """One launch of `fn`'s kernel: one more on fn.launches, or, while this
+    thread captures a graph under capture_tally, on the capture's tally
+    (a captured kernel runs at each replay, not now)."""
+    counts = getattr(_tally, "counts", None)
+    if counts is None:
+        fn.launches += 1
+    else:
+        counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Within: this thread's wrapper launches go to the yielded dict
+    {wrapper name: launches} instead of the wrappers' counts."""
+    prev = getattr(_tally, "counts", None)
+    _tally.counts = {}
+    try:
+        yield _tally.counts
+    finally:
+        _tally.counts = prev

@@ -4,7 +4,7 @@ Same discipline as kernels/scan.py: the wrapper checks dtype, shape,
 contiguity, device and alignment, allocates the outputs with
 torch.empty, launches on the current CUDA stream without synchronising,
 raises if the launch returned a CUDA error, and counts its launches in
-`pfb_branch.launches`. The plain torch twin is
+`pfb_branch.launches` (build.count_launch). The plain torch twin is
 ops.channelizer.branch_filter_ref.
 """
 
@@ -61,7 +61,7 @@ def pfb_branch(x_wire: torch.Tensor, hist: torch.Tensor,
                                   v.data_ptr(), new_hist.data_ptr(), n, nch,
                                   k, stream)
     build.check_launch(rc, "pfb_branch")
-    pfb_branch.launches += 1
+    build.count_launch(pfb_branch)
     return v, new_hist
 
 

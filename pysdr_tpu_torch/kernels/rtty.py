@@ -4,7 +4,8 @@ csrc/rtty.cu.
 Same discipline as kernels/pfb.py: the wrapper checks dtype, shape,
 contiguity and device, allocates the outputs with torch.empty, launches
 on the current CUDA stream without synchronising, raises if the launch
-returned a CUDA error, and counts its launches in `rtty_scores.launches`.
+returned a CUDA error, and counts its launches in `rtty_scores.launches`
+(build.count_launch).
 The plain torch twin is models.rtty.rtty_scores_ref.
 """
 
@@ -62,7 +63,7 @@ def rtty_scores(mags: torch.Tensor, mark_bins: torch.Tensor,
             soft_tail.data_ptr(), templates.data_ptr(), soft.data_ptr(),
             scores.data_ptr(), f, nfft, nch, t_rows, length, stream)
     build.check_launch(rc, "rtty_scores")
-    rtty_scores.launches += 1
+    build.count_launch(rtty_scores)
     return soft, scores
 
 

@@ -4,20 +4,25 @@ Each wrapper checks dtype, shape, strides and device and raises on
 anything its kernel does not take, allocates the outputs with
 torch.empty, launches on the current CUDA stream without synchronising,
 raises if the launch returned a CUDA error, and counts its launches in
-`<wrapper>.launches` (reset with kernels.reset_launch_counts). The plain
+`<wrapper>.launches` (build.count_launch; reset with
+kernels.reset_launch_counts). The plain
 torch twins are ops.scanops.linrec_ref / sr_latch_ref.
 
-Both kernels carry between time tiles by decoupled look-back (see
-csrc/scan.cu). Its status words and per-row tile tickets live in one
-`_Lookback` per (kernel, device, stream), kept across calls: each launch
-tags its words with a new epoch and leaves the tickets at 0, so no
-launch clears a buffer first (a memset would add an operation to every
-call); the words are zeroed only when the epoch wraps, and both grow
-when a larger shape comes.
+Both kernels carry between time tiles by look-back (see csrc/scan.cu).
+Its status words and control words (the epoch, a count of finished
+blocks, the per-row tile tickets) live in one `_Lookback` per kernel and
+device, kept across calls. The epoch is on the card: each launch tags
+its words with it and its last block moves it on, clearing the words
+when it wraps, so no launch takes a changing value from the host and
+none clears a buffer first; the two buffers grow together when a larger
+shape comes. Eager launches take the buffers of their (device, stream);
+a launch captured into a CUDA graph takes those of the graph, which the
+capture names with `lookback_scope`, and a capture without one raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -55,11 +60,21 @@ def sr_latch_geometry(batch: int, n: int) -> tuple[int, int, int]:
             return tile, 32 * warps, tiles
 
 
+# the control words ahead of the row tickets: the epoch count and the
+# finished blocks (csrc/scan.cu, kCtlTickets)
+CTL_HEAD = 2
+# the largest epoch a status word's tag holds: linrec's 64-bit words a
+# 30-bit one, sr_latch's bytes a 5-bit one (csrc/scan.cu)
+MAX_EPOCH = {"linrec": (1 << 30) - 1, "sr_latch": 31}
+
+
 class _Lookback:
-    """Status words and per-row tile tickets of one kernel on one (device,
-    stream). Each launch leaves the tickets at 0; its epoch tags the
-    words it writes. Launches on one stream run in order, so the epoch
-    stays true."""
+    """Status words and control words of one kernel's launches that run
+    one after another (one stream, or one graph's replays). `ctl` holds
+    the epoch, the finished blocks and the tickets, which the kernel
+    keeps (csrc/scan.cu); a launch leaves the words tagged with its
+    epoch, so the two grow together, both zeroed: the epoch starts again
+    with words that are all clean."""
 
     def __init__(self, device, dtype, per_slot: int, max_epoch: int):
         self.device = device
@@ -67,26 +82,70 @@ class _Lookback:
         self.per_slot = per_slot
         self.max_epoch = max_epoch
         self.words = torch.zeros(0, dtype=dtype, device=device)
-        self.tickets = torch.zeros(0, dtype=torch.int32, device=device)
-        self.epoch = 0
+        self.ctl = torch.zeros(0, dtype=torch.int32, device=device)
         self.lock = threading.Lock()
 
-    def claim(self, slots: int, rows: int) -> int:
-        """Room for `slots` status slots and `rows` tickets, and the
-        epoch of the next launch. Call under self.lock, and launch before
-        releasing it."""
-        if self.words.numel() < slots * self.per_slot:
-            cap = 1 << (slots * self.per_slot - 1).bit_length()
-            self.words = torch.zeros(cap, dtype=self.dtype,
-                                     device=self.device)
-        if self.tickets.numel() < rows:
-            self.tickets = torch.zeros(1 << (rows - 1).bit_length(),
-                                       dtype=torch.int32, device=self.device)
-        self.epoch += 1
-        if self.epoch > self.max_epoch:
-            self.words.zero_()
-            self.epoch = 1
-        return self.epoch
+    @classmethod
+    def of(cls, kind: str, device) -> "_Lookback":
+        """linrec: three tagged 64-bit words a slot; sr_latch: one byte."""
+        if kind == "linrec":
+            return cls(device, torch.int64, 3, MAX_EPOCH[kind])
+        return cls(device, torch.uint8, 1, MAX_EPOCH[kind])
+
+    def claim(self, slots: int, rows: int) -> None:
+        """Room for `slots` status slots and `rows` tickets. Call under
+        self.lock, and launch before releasing it. Growing allocates, so
+        it raises while the stream is being captured: the capture's
+        warm-up runs the same shapes first."""
+        need = slots * self.per_slot
+        if self.words.numel() >= need and self.ctl.numel() >= CTL_HEAD + rows:
+            return
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "scan look-back buffers would grow inside a CUDA graph "
+                "capture: run the captured step once first")
+        cap = max(self.words.numel(), 1 << (need - 1).bit_length())
+        rows_cap = max(self.ctl.numel() - CTL_HEAD,
+                       1 << (rows - 1).bit_length())
+        self.words = torch.zeros(cap, dtype=self.dtype, device=self.device)
+        self.ctl = torch.zeros(CTL_HEAD + rows_cap, dtype=torch.int32,
+                               device=self.device)
+
+
+class Lookbacks:
+    """The look-back buffers of one CUDA graph, kind by kind: launches
+    inside `lookback_scope(this)` take these, so the graph's replays,
+    which run one after another, own them alone."""
+
+    def __init__(self):
+        self._by_kind: dict = {}
+
+    def get(self, kind: str, device: torch.device) -> _Lookback:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        lb = self._by_kind.get(kind)
+        if lb is None:
+            lb = self._by_kind[kind] = _Lookback.of(kind, device)
+        if lb.device != device:
+            raise ValueError(f"{kind}: look-back buffers of {lb.device} "
+                             f"used on {device}")
+        return lb
+
+
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def lookback_scope(lookbacks: Lookbacks):
+    """Within: this thread's scan launches use `lookbacks`' buffers (a
+    graph's capture and the warm-up before it)."""
+    prev = getattr(_scope, "lookbacks", None)
+    _scope.lookbacks = lookbacks
+    try:
+        yield lookbacks
+    finally:
+        _scope.lookbacks = prev
 
 
 _lookbacks: dict = {}
@@ -94,16 +153,21 @@ _lookbacks_lock = threading.Lock()
 
 
 def _lookback(kind: str, device: torch.device) -> _Lookback:
+    """The buffers of this launch: those of the thread's lookback_scope,
+    else those of the current (device, stream); a capture must name
+    its own."""
+    scoped = getattr(_scope, "lookbacks", None)
+    if scoped is not None:
+        return scoped.get(kind, device)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{kind}: a CUDA graph capture must name its look-back "
+            "buffers (kernels.scan.lookback_scope)")
     key = (kind, device.index, torch.cuda.current_stream(device).cuda_stream)
     with _lookbacks_lock:
         lb = _lookbacks.get(key)
         if lb is None:
-            # linrec: three tagged 64-bit words a slot, a 30-bit epoch;
-            # sr_latch: one byte a slot, a 5-bit epoch
-            lb = (_Lookback(device, torch.int64, 3, (1 << 30) - 1)
-                  if kind == "linrec"
-                  else _Lookback(device, torch.uint8, 1, 31))
-            _lookbacks[key] = lb
+            lb = _lookbacks[key] = _Lookback.of(kind, device)
         return lb
 
 
@@ -160,14 +224,14 @@ def linrec(a, b: torch.Tensor, y_prev: torch.Tensor):
         lb = _lookback("linrec", b.device)
         stream = torch.cuda.current_stream().cuda_stream
         with lb.lock:
-            epoch = lb.claim(B * k * tiles, B)
+            lb.claim(B * k * tiles, B)
             rc = lib.pysdr_linrec_f32(
                 a_ptr, a_scalar, sa_b, sa_k, a_mode, b.data_ptr(),
                 y_prev.data_ptr(), y.data_ptr(), y_last.data_ptr(), B, n, k,
-                tile, lb.words.data_ptr(), lb.tickets.data_ptr(), epoch,
-                stream)
+                tile, lb.words.data_ptr(), lb.words.numel(),
+                lb.ctl.data_ptr(), lb.max_epoch, stream)
     build.check_launch(rc, "linrec")
-    linrec.launches += 1
+    build.count_launch(linrec)
     return y, y_last
 
 
@@ -195,14 +259,15 @@ def sr_latch(set_: torch.Tensor, reset: torch.Tensor, g_prev: torch.Tensor):
         lb = _lookback("sr_latch", set_.device)
         stream = torch.cuda.current_stream().cuda_stream
         with lb.lock:
-            epoch = lb.claim(B * tiles, B)
+            lb.claim(B * tiles, B)
             # bool and uint8 share one byte per element: pass the storage
             rc = lib.pysdr_sr_latch_u8(
                 set_.data_ptr(), reset.data_ptr(), g_prev.data_ptr(),
                 gate.data_ptr(), gate_last.data_ptr(), B, n, tile,
-                lb.words.data_ptr(), lb.tickets.data_ptr(), epoch, stream)
+                lb.words.data_ptr(), lb.words.numel(), lb.ctl.data_ptr(),
+                lb.max_epoch, stream)
     build.check_launch(rc, "sr_latch")
-    sr_latch.launches += 1
+    build.count_launch(sr_latch)
     return gate, gate_last
 
 

@@ -9,11 +9,13 @@ BASELINE config 5).
 The per-channel stages run batched over the channel axis (the reference
 vmaps one channel). Every knob (fine offset, filter row, mode, gains,
 squelch, mute) is per-channel tensor data, so a control change never
-changes the step, and a knob on one channel rebuilds only that channel's
-row. The executive drives the bank through the same facade as
-ReceiverBank: design.{fs_in, fs_out, in_block, out_block, up, down},
-n_rx, device, step_device, _last_bb, and BankIO's audio_from_wire,
-baseband_from_wire and step.
+changes the step, and a knob on one channel rewrites only that channel's
+row of the params, in place. On a card the step is captured once per
+(wire dtype, in_block) as a CUDA graph and replayed (models/graphstep);
+`graph=False` runs it eagerly. The executive drives the bank through the
+same facade as ReceiverBank: design.{fs_in, fs_out, in_block, out_block,
+up, down}, n_rx, device, step_device, _last_bb, and BankIO's
+audio_from_wire, baseband_from_wire, step and prepare.
 
 Channels are critically sampled; a fine retune off channel center is
 legal but aliases as |offset| -> fs_ch/2, like any critically sampled PFB.
@@ -28,6 +30,7 @@ import torch
 
 from pysdr_tpu_torch import rates, tables
 from pysdr_tpu_torch.device import map_tensors, resolve_device
+from pysdr_tpu_torch.models.graphstep import StepGraphs
 from pysdr_tpu_torch.models.receiver import BankIO
 from pysdr_tpu_torch.ops import channelizer as chan_ops
 from pysdr_tpu_torch.ops import cplx
@@ -115,24 +118,23 @@ class BankDesign:
     down: int
 
 
-def _set_row(full, row, i: int):
-    """A copy of the stacked dataclass `full` with row i replaced by the
-    (host) row `row`."""
+def _set_row(full, row, i: int) -> None:
+    """Write the (host) row `row` into row i of the stacked dataclass
+    `full`, in place (a captured step reads full's tensors)."""
     if isinstance(full, torch.Tensor):
-        out = full.clone()
-        out[i] = row.to(full.device)
-        return out
-    return type(full)(**{f.name: _set_row(getattr(full, f.name),
-                                          getattr(row, f.name), i)
-                         for f in dataclasses.fields(full)})
+        full[i].copy_(row)
+        return
+    for f in dataclasses.fields(full):
+        _set_row(getattr(full, f.name), getattr(row, f.name), i)
 
 
 class ChannelizerBank(BankIO, torch.nn.Module):
     """N uniform channels + demod with the same host control plane as
-    ReceiverBank (block-boundary params swaps)."""
+    ReceiverBank (block-boundary params writes). `graph` as for
+    ReceiverBank."""
 
     def __init__(self, cfg: ChannelizerBankConfig, audio_wire: str = "f32",
-                 device="cuda"):
+                 device="cuda", graph: bool = True):
         super().__init__()
         if audio_wire not in ("f32", "i16", "i8"):
             raise ValueError(f"unknown audio wire {audio_wire!r}")
@@ -175,6 +177,10 @@ class ChannelizerBank(BankIO, torch.nn.Module):
         self._last_bb = None          # executive/app tap parity
         self.params = self._build_params()
         self.state = self.init_state()
+        self._graphs = StepGraphs(
+            self, self._step_impl,
+            lambda: (self.branch_weights, self.video_bank,
+                     self.carrier_taps, self.pilot_taps), graph)
 
     # ---------- construction ----------
 
@@ -257,10 +263,9 @@ class ChannelizerBank(BankIO, torch.nn.Module):
 
     def step_device(self, x_wire: torch.Tensor) -> torch.Tensor:
         """Device step: returns the flattened audio wire block on the
-        device (no host transfer)."""
-        self.state, audio_w = self._step_impl(self.state, x_wire,
-                                              self.params)
-        return audio_w
+        device (no host transfer): the step's static output, valid until
+        the next step (ReceiverBank.step_device)."""
+        return self._graphs.run(x_wire)[0]
 
     # ---------- control plane ----------
 
@@ -268,8 +273,7 @@ class ChannelizerBank(BankIO, torch.nn.Module):
         self._ch_cfgs[i] = dataclasses.replace(self._ch_cfgs[i], **changes)
         # channels are independent: one knob rebuilds ONE row (a full
         # rebuild would design a 256-tap AF filter for every channel)
-        self.params = _set_row(self.params, self._params_for(
-            self._ch_cfgs[i]), i)
+        _set_row(self.params, self._params_for(self._ch_cfgs[i]), i)
 
     def retune(self, i: int, fine_offset_hz: float):
         """Fine retune inside channel i (the FreqSelect analogue)."""

@@ -5,7 +5,10 @@ One step processes a shared RF block for every channel: the bank-level
 fused mix+resample (ops/resample.mixed_resample_bank) followed by the
 channel-batched demod. Every control-plane knob (NCO offset, filter row,
 mode, gains, squelch, mute) is per-channel tensor data rebuilt on the
-host between blocks, so a control change never changes the step.
+host between blocks and copied into the bank's params, so a control
+change never changes the step. On a card the step is captured once per
+(wire dtype, in_block) as a CUDA graph and replayed (models/graphstep),
+as the JAX bank jits it once; `graph=False` runs the same step eagerly.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 
 from pysdr_tpu_torch import config as cfg_mod
 from pysdr_tpu_torch import tables
-from pysdr_tpu_torch.device import map_tensors, resolve_device
+from pysdr_tpu_torch.device import copy_tensors, map_tensors, resolve_device
+from pysdr_tpu_torch.models.graphstep import StepGraphs
 from pysdr_tpu_torch.ops import cplx
 from pysdr_tpu_torch.ops import demod as demod_ops
 from pysdr_tpu_torch.ops import fir, nco, resample
@@ -103,8 +107,8 @@ def channel_step(x, hist, state: ChannelState, p: ChannelParams,
 
 class BankIO:
     """The host side of a bank's step, shared by ReceiverBank and
-    ChannelizerBank; uses self.device, self.n_rx, self.design.out_block
-    and self.step_device."""
+    ChannelizerBank; uses self.device, self.n_rx, self.design.out_block,
+    self.step_device and the step's launcher self._graphs."""
 
     def to_device_block(self, x) -> torch.Tensor:
         """Host complex block -> device float32 (n, 2) pairs; a real wire
@@ -130,7 +134,22 @@ class BankIO:
     def step(self, x) -> np.ndarray:
         """Host convenience: one RF block (in_block complex) in, host audio
         (n_rx, out_block) complex64 out; advances the state."""
-        return self.audio_from_wire(self.step_device(self.to_device_block(x)))
+        # the step's audio is its static output, rewritten by the next
+        # step: a copy on the host, also where the bank is on the CPU
+        return self.audio_from_wire(self.step_device(
+            self.to_device_block(x)).to("cpu", copy=True))
+
+    def prepare(self, dtype: torch.dtype, in_block: int) -> None:
+        """Make the step's static buffers for (dtype, in_block) wire
+        blocks, and on a card capture its graph: before any other thread
+        works on the card (the executive calls it before its prefetch
+        thread starts). step_device does it at a key's first block."""
+        self._graphs.prepare(dtype, in_block)
+
+    @property
+    def graph_count(self) -> int:
+        """CUDA graphs captured so far: one per (wire dtype, in_block)."""
+        return self._graphs.count
 
 
 class ReceiverBank(BankIO, torch.nn.Module):
@@ -139,11 +158,13 @@ class ReceiverBank(BankIO, torch.nn.Module):
     `step(x)` takes a host complex block and returns host audio;
     `step_device(x_wire)` takes a device wire block (float32 / int16 /
     int8 (in_block, 2)) and returns the device audio wire block. The
-    control methods rewrite per-channel params, applied at the next block.
+    control methods rewrite per-channel params in place, applied at the
+    next block. `graph` (a card only): replay the step as a CUDA graph
+    (the default) or run it eagerly, for comparisons.
     """
 
     def __init__(self, cfg: cfg_mod.PipelineConfig, emit_baseband=False,
-                 audio_wire: str = "f32", device="cuda"):
+                 audio_wire: str = "f32", device="cuda", graph: bool = True):
         super().__init__()
         cfg_mod.validate(cfg)
         if audio_wire not in ("f32", "i16", "i8"):
@@ -179,8 +200,13 @@ class ReceiverBank(BankIO, torch.nn.Module):
         self._center_dial = cfg.receivers[0].fc_hz - cfg.foffset_hz
         # host callback(new_center_dial_hz) that retunes the source
         self.on_device_retune = None
-        self.params = self._build_params()
+        self.params = map_tensors(lambda t: t.to(self.device),
+                                  self._build_params())
         self.state = self.init_state()
+        self._graphs = StepGraphs(
+            self, self._step_impl,
+            lambda: (self.video_bank, self.carrier_taps, self.pilot_taps),
+            graph)
 
     # ---------- construction ----------
 
@@ -206,6 +232,7 @@ class ReceiverBank(BankIO, torch.nn.Module):
             video_row=torch.tensor(self._video_row_for(rc)), demod=dp)
 
     def _build_params(self) -> ChannelParams:
+        """Every channel's params from the current configs, on the host."""
         # NCO offsets from the CURRENT dials against the device anchor; a
         # chained RX (src >= 0) uses fc_i - fc_src
         def off(rc):
@@ -213,11 +240,10 @@ class ReceiverBank(BankIO, torch.nn.Module):
                 return rc.fc_hz - self._rx_cfgs[rc.src].fc_hz
             return rc.fc_hz - self._center_dial
         rows = [self._params_for(rc, off(rc)) for rc in self._rx_cfgs]
-        params = ChannelParams(
+        return ChannelParams(
             nco_k=torch.stack([r.nco_k for r in rows]),
             video_row=torch.stack([r.video_row for r in rows]),
             demod=demod_ops.DemodParams.stack([r.demod for r in rows]))
-        return map_tensors(lambda t: t.to(self.device), params)
 
     def init_state(self) -> BankState:
         d = self.design
@@ -259,17 +285,25 @@ class ReceiverBank(BankIO, torch.nn.Module):
 
     def step_device(self, x_wire: torch.Tensor) -> torch.Tensor:
         """Device step: returns the flattened audio wire block on the
-        device (no host transfer)."""
-        self.state, (audio_w, bb) = self._step_impl(
-            self.state, x_wire, self.params)
-        self._last_bb = bb
-        return audio_w
+        device (no host transfer). The block is copied into the step's
+        static input; the audio returned is the step's static output,
+        valid until the next step (the executive copies it to the host
+        right after). The baseband, which the executive keeps for
+        pipeline_depth blocks, is copied out (_last_bb)."""
+        outs = self._graphs.run(x_wire)
+        self._last_bb = outs[1].clone() if self.emit_baseband else None
+        return outs[0]
 
     # ---------- control plane (block-boundary mutations) ----------
 
+    def _rebuild_params(self):
+        """Copy params rebuilt from the configs into the bank's params (a
+        captured step reads those tensors)."""
+        copy_tensors(self.params, self._build_params())
+
     def _update(self, i: int, **changes):
         self._rx_cfgs[i] = dataclasses.replace(self._rx_cfgs[i], **changes)
-        self.params = self._build_params()
+        self._rebuild_params()
 
     def retune(self, i: int, fc_hz: float):
         """In-passband retunes update the NCO numerator; a MAIN-RX retune
@@ -333,7 +367,7 @@ class ReceiverBank(BankIO, torch.nn.Module):
         for i in range(self.n_rx):
             self._rx_cfgs[i] = dataclasses.replace(
                 self._rx_cfgs[i], auto_mute=bool(enabled))
-        self.params = self._build_params()
+        self._rebuild_params()
 
     # ---------- verification harness ----------
 

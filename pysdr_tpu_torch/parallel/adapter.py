@@ -100,6 +100,10 @@ class ShardedStreamBank:
         """The first shard's device: the executive uploads there."""
         return self.mesh.first
 
+    def prepare(self, dtype, in_block) -> None:
+        """Nothing to capture: the sharded processors run eagerly (the
+        wrapped bank's own step, which would capture, never runs here)."""
+
     def step_device(self, x_p):
         """x_p: a float32 / int16 / int8 (S*seg, 2) wire block on
         self.device (dequantized before the halo copies). Returns one
@@ -182,6 +186,7 @@ class ShardedChannelizerBank:
         return self.bank.n_ch
 
     device = ShardedStreamBank.device
+    prepare = ShardedStreamBank.prepare
     audio_from_wire = ShardedStreamBank.audio_from_wire
     baseband_from_wire = ShardedStreamBank.baseband_from_wire
 

@@ -4,15 +4,20 @@ post, stop, stage_report, run_in_thread).
 
 Per block the host reads (and wire-quantizes) the next IQ chunk while the
 device computes the current one: CUDA kernels run asynchronously and the
-step never waits on the card (its constants live on the device). Right
-after a block's step is issued, its audio wire starts copying into
-pinned host memory with one CUDA event a device (start_host_copy, the
-reference's copy_to_host_async), so the drain of block k-D waits for
-that block's copy alone, not for the steps and uploads queued after it.
+step never waits on the card (its constants live on the device). A
+bank's step (ReceiverBank, ChannelizerBank; the --mesh adapters stay
+eager) is one CUDA graph replay a block, captured by `prepare`
+before the prefetch thread starts (a capture fails if another thread
+works on the card meanwhile). Right after a block's step is issued, its
+audio wire (the step's static output, rewritten by the next step)
+starts copying into pinned host memory with one CUDA event a device
+(start_host_copy, the reference's copy_to_host_async), so the drain of
+block k-D waits for that block's copy alone, not for the steps and
+uploads queued after it.
 Uploads go through pinned host memory with a non_blocking copy. Control
 mutations arrive through a thread-safe queue and are applied between
-blocks as params swaps; each swap copies the new params up from pageable
-memory, a sync of its own between blocks.
+blocks as writes into the bank's params; each copies the new params up
+from pageable memory, a sync of its own between blocks.
 """
 
 from __future__ import annotations
@@ -32,6 +37,10 @@ from pysdr_tpu_torch.ops import cplx
 from pysdr_tpu_torch.runtime.profiler import BlockProfiler
 from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
 
+# the RF wire's dtype on the device, as upload() moves it
+WIRE_TORCH_DTYPES = {"f32": torch.float32, "i16": torch.int16,
+                     "i8": torch.int8}
+
 
 def upload(q: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A host wire block onto `device`: on a card, copied into pinned
@@ -49,11 +58,13 @@ def start_host_copy(audio_w):
     copying to the host right after dispatch (the reference's
     copy_to_host_async). A CUDA piece goes to pinned memory from the
     caching host allocator with a non_blocking copy, which holds its block
-    until the copy is done; one CUDA event a device follows its copies.
+    until the copy is done; one CUDA event a device follows its copies. A
+    CPU piece is copied too: the bank's next step rewrites its output.
     Returns (host pieces shaped as audio_w, events)."""
     one = isinstance(audio_w, torch.Tensor)
     pieces = [audio_w] if one else list(audio_w)
-    host = [p.to("cpu", non_blocking=True) for p in pieces]
+    host = [p.to("cpu", non_blocking=True) if p.is_cuda else p.clone()
+            for p in pieces]
     events = []
     for dev in dict.fromkeys(p.device for p in pieces if p.is_cuda):
         ev = torch.cuda.Event()
@@ -82,7 +93,7 @@ class Executive:
         """bank: a models.receiver.ReceiverBank,
         models.channelizer_bank.ChannelizerBank or a parallel.adapter
         bank, driven only through design.{in_block, fs_in, fs_out}, n_rx,
-        device, step_device, audio_from_wire, baseband_from_wire,
+        device, prepare, step_device, audio_from_wire, baseband_from_wire,
         _last_bb and the control methods post() names;
         source: anything with read_data(n) (DatReader / SynthSource) or
         read_packed(n);
@@ -123,8 +134,9 @@ class Executive:
         self.drained_bb = None
         # mean ms/block per stage: read = host source, upload = quantize
         # (the host's wire quantization) + pin+issue (the copy into pinned
-        # memory and the host->device issue), dispatch = device step issue,
-        # drain = result pull + sinks
+        # memory and the host->device issue), dispatch = device step issue
+        # (the block's copy into the step's static input and the graph's
+        # replay), drain = result pull + sinks
         self.stage_ms = {"read": 0.0, "upload": 0.0, "quantize": 0.0,
                          "pin+issue": 0.0, "dispatch": 0.0, "drain": 0.0}
 
@@ -249,8 +261,17 @@ class Executive:
 
     # ---- the hot loop ----
 
+    def prepare(self):
+        """Capture the bank's step for this executive's wire blocks (a
+        no-op once done): run() calls it before it starts the prefetch
+        thread, and a caller may call it earlier, before other threads
+        (a trace, services) start."""
+        self.bank.prepare(WIRE_TORCH_DTYPES[self.wire],
+                          self.bank.design.in_block)
+
     def run(self, n_blocks: int | None = None,
             duration_s: float | None = None):
+        self.prepare()
         d = self.bank.design
         deadline = time.monotonic() + duration_s if duration_s else None
         block_budget = d.in_block / d.fs_in

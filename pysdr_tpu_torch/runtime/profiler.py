@@ -96,8 +96,12 @@ def torch_trace(log_dir: str):
 def timed_steps(bank, xbs):
     """CUDA-event time of bank.step_device per block, each step under
     sync debug mode "error" (any blocking copy or stream sync inside it
-    raises). Returns (outputs, ms per step)."""
+    raises), after the bank has captured its step for the blocks' wire
+    (bank.prepare: the capture itself synchronizes). Returns (a copy of
+    each step's output, ms per step)."""
     import torch
+    for xb in xbs:
+        bank.prepare(xb.dtype, xb.shape[0])
     outs, step_ms = [], []
     for xb in xbs:
         torch.cuda.synchronize()
@@ -106,12 +110,14 @@ def timed_steps(bank, xbs):
         a.record()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            outs.append(bank.step_device(xb))
+            out = bank.step_device(xb)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         b.record()
         b.synchronize()
         step_ms.append(a.elapsed_time(b))
+        # the step's output is rewritten by the next step
+        outs.append(out.clone())
     return outs, step_ms
 
 
@@ -123,11 +129,16 @@ def profile_steps(bank, xbs, out=None) -> dict:
     """torch.profiler over bank.step_device on each block of xbs: prints
     the profiler's table, each hand kernel's launches and device time, and
     a summary line to `out` (default stdout). Busy is the kernels' self
-    device time; the idle share is 1 - busy / the host's wall time a step.
+    device time; the idle share is 1 - busy / the host's wall time a step,
+    which includes the profiler's own host cost. A replayed CUDA graph's
+    kernels are listed one by one, as eager ones (CUPTI records each),
+    so a graphed step counts and times the kernels it replays.
     Returns {kernels_per_step, device_busy_ms, host_wall_ms,
     device_idle_share}."""
     import torch
     out = out or sys.stdout
+    for xb in xbs:
+        bank.prepare(xb.dtype, xb.shape[0])      # no capture in the window
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

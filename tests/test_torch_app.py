@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from pysdr_tpu_torch import app
+from pysdr_tpu_torch import app, bench
 from pysdr_tpu_torch.config import PipelineConfig, ReceiverConfig
 from pysdr_tpu_torch.models.receiver import ReceiverBank
 from pysdr_tpu_torch.runtime.executive import Executive
@@ -312,7 +312,9 @@ def test_bench_runs_without_the_jax_package(tmp_path):
     assert out.returncode == 0 and "clean exit" in out.stdout, report
     lines = [json.loads(ln) for ln in out.stdout.splitlines()
              if ln.startswith("{")]
-    assert len(lines) == 5 and "end_to_end_bank4" in lines[3], report
+    names = list(bench.CONFIGS)            # one JSON line a config
+    assert len(lines) == len(names), report
+    assert "end_to_end_bank4" in lines[names.index("e2e_suite")], report
 
 
 # ---- the RTTY decoder in the app ----

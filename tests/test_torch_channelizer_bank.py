@@ -17,6 +17,7 @@ from pysdr_tpu.models.channelizer_bank import ChannelSettings as JaxSettings
 from pysdr_tpu.ops import cplx as jcplx
 from pysdr_tpu.tables import Mode as JMode
 from pysdr_tpu_torch import convert
+from pysdr_tpu_torch.device import map_tensors
 from pysdr_tpu_torch.models.channelizer_bank import (ChannelizerBank,
                                                      ChannelizerBankConfig,
                                                      ChannelSettings)
@@ -119,7 +120,8 @@ def test_bank_matches_jax_per_channel(fs_ch):
 def test_retune_mode_change_and_mute_match_jax():
     tcfg, jcfg = configs(48e3)
     tb, jb = ChannelizerBank(tcfg, device="cpu"), JaxBank(jcfg)
-    params0 = tb.params
+    params0 = map_tensors(torch.clone, tb.params)
+    bound = tb.params
     for blk, x in enumerate(station_blocks(tcfg, 4)):
         if blk == 1:
             for b, M in ((tb, Mode), (jb, JMode)):
@@ -132,8 +134,13 @@ def test_retune_mode_change_and_mute_match_jax():
         a_t = assert_parity(tb, jb, x, blk)
         if blk >= 2:
             assert np.abs(a_t[5]).max() == 0.0
-    # a knob rewrites one row of a new params object
+    # a knob rewrites one row of the bank's params, in place (a captured
+    # step reads those tensors)
     assert params0.nco_k[2].item() == 0 and tb.params.nco_k[2].item() != 0
+    assert tb.params is bound
+    np.testing.assert_array_equal(
+        np.delete(tb.params.nco_k.numpy(), 2),
+        np.delete(params0.nco_k.numpy(), 2))
     np.testing.assert_array_equal(tb.params.nco_k.numpy(),
                                   np.asarray(jb.params.nco_k))
     np.testing.assert_array_equal(tb.state.nco_phase.numpy(),

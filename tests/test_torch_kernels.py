@@ -16,6 +16,7 @@ import torch
 
 from pysdr_tpu_torch import kernels
 from pysdr_tpu_torch.config import PipelineConfig, ReceiverConfig
+from pysdr_tpu_torch.device import leaves, map_tensors
 from pysdr_tpu_torch.kernels import build
 from pysdr_tpu_torch.kernels import pfb as kpfb
 from pysdr_tpu_torch.kernels import rtty as krtty
@@ -230,19 +231,29 @@ def test_every_wrapper_counts_launches_from_import():
 
 
 def test_lookback_bookkeeping():
-    """The epoch rises by one a launch; the status words are zeroed (and
-    the epoch restarts) only when it wraps or the buffer grows; the
-    ticket counters grow to the rows and start at 0."""
+    """The status words and the control words (the epoch, the finished
+    blocks and the row tickets, which the kernels keep on the card) grow
+    together and both start at 0, so the epoch starts again with clean
+    words; a claim that fits keeps both as the launches left them; neither
+    shrinks."""
     lb = kscan._Lookback(torch.device("cpu"), torch.int64, 3, 3)
-    assert lb.claim(10, 4) == 1 and lb.words.numel() == 32
-    assert lb.tickets.numel() == 4 and not lb.tickets.any()
+    lb.claim(10, 4)
+    assert lb.words.numel() == 32
+    assert lb.ctl.numel() == kscan.CTL_HEAD + 4
+    assert not lb.words.any() and not lb.ctl.any()
+    lb.words.fill_(7)                      # as launches leave them
+    lb.ctl[0] = 2
+    words, ctl = lb.words, lb.ctl
+    lb.claim(10, 3)
+    lb.claim(5, 4)
+    assert lb.words is words and lb.ctl is ctl and int(lb.ctl[0]) == 2
+    lb.claim(11, 5)                        # more slots and rows
+    assert lb.words.numel() == 64 and lb.ctl.numel() == kscan.CTL_HEAD + 8
+    assert not lb.words.any() and not lb.ctl.any()
     lb.words.fill_(7)
-    assert lb.claim(10, 3) == 2 and lb.claim(5, 4) == 3
-    assert int(lb.words[0]) == 7 and lb.tickets.numel() == 4
-    assert lb.claim(5, 1) == 1 and not lb.words.any()     # wrapped
-    lb.words.fill_(7)
-    assert lb.claim(11, 5) == 2 and lb.words.numel() == 64
-    assert not lb.words.any() and lb.tickets.numel() == 8
+    lb.claim(1, 9)                         # more rows alone: both anew
+    assert lb.words.numel() == 64 and lb.ctl.numel() == kscan.CTL_HEAD + 16
+    assert not lb.words.any() and not lb.ctl.any()
 
 
 def test_scan_a_reaches_the_kernel_uncopied(monkeypatch):
@@ -473,7 +484,7 @@ def test_scan_kernels_long_tile_edges(cuda, n):
 def test_scan_kernels_repeat_exactly(cuda):
     """Many launches through one look-back buffer (epochs past the
     latch's wrap at 31, shapes that grow and shrink it) give the same
-    bits each time for the same inputs."""
+    bits each time for the same inputs, linrec's float carry too."""
     a, b, yp = (torch.from_numpy(v).to(cuda)
                 for v in scan_inputs((4, 24576, 4), 15))
     s, r, gp = (torch.from_numpy(v).to(cuda)
@@ -489,9 +500,9 @@ def test_scan_kernels_repeat_exactly(cuda):
         g, _ = kscan.sr_latch(s, r, gp)
         torch.cuda.synchronize()
         assert torch.equal(g, g0), i
-        # the carry's association depends on which predecessors had
-        # published their prefix: equal to f32 rounding, not to the bit
-        assert (y - y0).abs().max().item() <= 1e-4 * y0.abs().max().item()
+        # the carry composes every predecessor's aggregate in a fixed
+        # order, whichever finished first: the same bits
+        assert torch.equal(y, y0), i
 
 
 @pytest.mark.cuda
@@ -536,9 +547,11 @@ def test_dispatch_takes_the_kernel_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_bank_step_does_not_wait_on_the_card(cuda):
-    """A 4-RX bank step launches every scan kernel and makes no blocking
-    copy or stream sync: sync debug mode 'error' raises on any (the
-    demod's scan constants cleared first, as for the channelizer bank)."""
+    """A 4-RX bank step, one graph replay, launches every scan kernel
+    (counted through the replays) and makes no blocking copy or stream
+    sync: sync debug mode 'error' raises on any (the demod's scan
+    constants cleared first, as for the channelizer bank). The capture,
+    which synchronizes, comes first (bank.prepare)."""
     demod.scan_constants.cache_clear()
     cfg = PipelineConfig(
         fs_in=512e3, fs_out=48e3, out_block=3072, foffset_hz=60e3,
@@ -551,16 +564,19 @@ def test_bank_step_does_not_wait_on_the_card(cuda):
     xbs = [bank.to_device_block((rng.standard_normal(n)
                                  + 1j * rng.standard_normal(n)) * 0.1)
            for _ in range(3)]
+    bank.prepare(torch.float32, n)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        outs = [bank.step_device(xb) for xb in xbs]
+        # each step's output is the graph's, rewritten by the next step
+        outs = [bank.step_device(xb).clone() for xb in xbs]
     finally:
         torch.cuda.set_sync_debug_mode(0)
     # per step: linrec for pass A, pass B and the AGC; sr_latch once
     assert kernels.launch_counts() == {"linrec": 9, "sr_latch": 3,
                                        "pfb_branch": 0, "rtty_scores": 0}
+    assert bank.graph_count == 1
     for out in outs:
         assert out.dtype == torch.int16
         assert out.shape == (bank.n_rx * cfg.out_block * 2,)
@@ -611,11 +627,12 @@ def test_pfb_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_chanbank_step_does_not_wait_on_the_card(cuda):
-    """An 8-channel bank step launches every kernel (the branch filter
-    once, the scans as in the receiver bank) and makes no blocking copy
-    or stream sync: sync debug mode 'error' raises on any. The demod's
-    scan constants are cleared first, so the bank's constructor alone
-    must have put them on the device (under the key the step uses)."""
+    """An 8-channel bank step, one graph replay, launches every kernel
+    (the branch filter once, the scans as in the receiver bank; counted
+    through the replays) and makes no blocking copy or stream sync: sync
+    debug mode 'error' raises on any. The demod's scan constants are
+    cleared first, so the bank's constructor alone must have put them on
+    the device (under the key the step uses)."""
     demod.scan_constants.cache_clear()
     cfg = ChannelizerBankConfig(fs_in=8 * 192e3, n_channels=8,
                                 out_block=2048, fc_hz=100e6)
@@ -625,15 +642,17 @@ def test_chanbank_step_does_not_wait_on_the_card(cuda):
     xbs = [torch.from_numpy(cplx.quantize_host(
         rng.uniform(-0.5, 0.5, (n, 2)).astype(np.float32), "i8")).to(cuda)
         for _ in range(3)]
+    bank.prepare(torch.int8, n)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        outs = [bank.step_device(xb) for xb in xbs]
+        outs = [bank.step_device(xb).clone() for xb in xbs]
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert kernels.launch_counts() == {"linrec": 9, "sr_latch": 3,
                                        "pfb_branch": 3, "rtty_scores": 0}
+    assert bank.graph_count == 1
     for out in outs:
         assert out.dtype == torch.int8
         assert out.shape == (8 * cfg.out_block * 2,)
@@ -774,3 +793,159 @@ def test_channel_shards_on_one_card_match_the_serial_bank(cuda):
                                     "ch", [cuda] * 4), n_blocks=3)
     assert kernels.launch_counts()["pfb_branch"] == 12
     np.testing.assert_allclose(got, ref, atol=2e-4)
+
+
+# ---- the banks' step captured as a CUDA graph (models/graphstep) ----
+
+def _graph_bank(kind, cuda, graph):
+    """The bench's device-only configs at full width: bank4 (i16 audio),
+    modes1ch (f32 audio) and chan64 (mu-law i8 audio)."""
+    if kind == "chan64":
+        cfg = ChannelizerBankConfig(fs_in=64 * 192e3, n_channels=64,
+                                    fs_out=48e3, out_block=3072,
+                                    fc_hz=100e6)
+        return ChannelizerBank(cfg, audio_wire="i8", device=cuda,
+                               graph=graph)
+    if kind == "bank4":
+        fs, modes, out, spacing, foff, wire = (
+            8e6, (Mode.AM, Mode.NFM, Mode.USB, Mode.CW), 24576, 500e3,
+            750e3, "i16")
+    else:
+        fs, modes, out, spacing, foff, wire = (2.048e6, (Mode.AM,), 16384,
+                                               0.0, 120e3, "f32")
+    cfg = PipelineConfig(
+        fs_in=fs, fs_out=48e3, out_block=out, foffset_hz=foff,
+        receivers=tuple(ReceiverConfig(fc_hz=100e6 + spacing * i, mode=m)
+                        for i, m in enumerate(modes)))
+    return ReceiverBank(cfg, audio_wire=wire, device=cuda, graph=graph)
+
+
+def _wire_blocks(n, wire, count, seed, cuda):
+    """count (n, 2) RF wire blocks on the card from a seeded generator:
+    normals of rms 0.3, quantized as the host would."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    out = []
+    for _ in range(count):
+        x = 0.3 * torch.randn((n, 2), generator=gen, device=cuda)
+        if wire != "f32":
+            s = cplx.WIRE_SCALES[wire]
+            x = torch.clamp(torch.round(x * s), -s, s).to(
+                torch.int8 if wire == "i8" else torch.int16)
+        out.append(x)
+    return out
+
+
+def _modes1ch_controls(bank, k):
+    """modes1ch's three modes on one bank: AM, then NFM with squelch 10
+    dB, then USB with AGC, as params writes."""
+    if k == 21:
+        bank.set_mode(0, Mode.NFM)
+        bank.set_squelch(0, 10.0)
+    elif k == 42:
+        bank.set_mode(0, Mode.USB)
+        bank.set_squelch(0, -150.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["i8", "i16", "f32"])
+@pytest.mark.parametrize("kind", ["bank4", "modes1ch", "chan64"])
+def test_graphed_step_equals_eager(cuda, kind, wire):
+    """64 blocks, past sr_latch's epoch wrap at 31 launches, through the
+    graphed bank and an eager twin fed the same blocks: each block's
+    audio wire and every tensor of the new state bit-equal (the same
+    kernels on the same inputs; linrec's look-back composes in a fixed
+    order). modes1ch changes mode twice and stays one graph."""
+    g = _graph_bank(kind, cuda, graph=True)
+    e = _graph_bank(kind, cuda, graph=False)
+    xbs = _wire_blocks(g.design.in_block, wire, 8, 41, cuda)
+    for k in range(64):
+        if kind == "modes1ch":
+            for b in (g, e):
+                _modes1ch_controls(b, k)
+        a_g, a_e = g.step_device(xbs[k % 8]), e.step_device(xbs[k % 8])
+        torch.cuda.synchronize()
+        assert torch.equal(a_g, a_e), (kind, wire, k)
+        for i, (sg, se) in enumerate(zip(leaves(g.state), leaves(e.state))):
+            assert torch.equal(sg, se), (kind, wire, k, i)
+    assert g.graph_count == 1 and e.graph_count == 0
+
+
+@pytest.mark.cuda
+def test_scans_replay_in_one_graph(cuda):
+    """96 linrec and 64 sr_latch launches back to back in one captured
+    graph (on the graph's own look-back buffers, linrec's epoch wrapping
+    every 5 launches, sr_latch's every 31), replayed three times: every
+    output equals its twin each time (linrec the eager kernel's bits),
+    and the tally holds the launches a replay adds."""
+    from pysdr_tpu_torch.kernels import build as kbuild
+    lin = []
+    for shape, seed in (((4, 24576, 4), 51), ((4, 24576, 2), 52),
+                        ((64, 12288, 4), 53)):
+        a, b, yp = (torch.from_numpy(v).to(cuda)
+                    for v in scan_inputs(shape, seed))
+        a = a[:, :1].expand(shape)          # a per-column constant
+        lin.append((a, b, yp, kscan.linrec(a, b, yp)))
+    lat = []
+    for shape, seed in (((4, 24576), 54), ((64, 12288), 55)):
+        s, r, gp = (torch.from_numpy(v).to(cuda)
+                    for v in latch_inputs(shape, seed))
+        lat.append((s, r, gp, scanops.sr_latch_ref(s, r, gp)))
+    lbs = kscan.Lookbacks()
+    lbs.get("linrec", cuda).max_epoch = 5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), kscan.lookback_scope(lbs):
+        for a, b, yp, _ in lin:             # size the graph's buffers
+            kscan.linrec(a, b, yp)
+        for s, r, gp, _ in lat:
+            kscan.sr_latch(s, r, gp)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    outs = []
+    with kbuild.capture_tally() as tally, kscan.lookback_scope(lbs), \
+            torch.cuda.graph(graph, stream=side):
+        for _ in range(32):
+            for i, (a, b, yp, _) in enumerate(lin):
+                outs.append(("linrec", i, kscan.linrec(a, b, yp)))
+            for i, (s, r, gp, _) in enumerate(lat):
+                outs.append(("sr_latch", i, kscan.sr_latch(s, r, gp)))
+    assert tally == {"linrec": 96, "sr_latch": 64}
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for kind, i, (y, last) in outs:
+            if kind == "linrec":
+                y0, l0 = lin[i][3]
+                assert torch.equal(y, y0) and torch.equal(last, l0), i
+            else:
+                g_ref, l_ref = lat[i][3]
+                assert torch.equal(y, g_ref) and torch.equal(last, l_ref), i
+    a, b, yp, (y0, _) = lin[2]
+    y_ref, _ = scanops.linrec_ref(a, b, yp)
+    assert (y0 - y_ref).abs().max().item() <= \
+        1e-4 * y_ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_a_capture_must_name_its_lookback_buffers(cuda):
+    """A scan launched inside a capture without lookback_scope raises
+    rather than take a stream's eager buffers (or make new ones inside
+    the graph)."""
+    a, b, yp = (torch.from_numpy(v).to(cuda)
+                for v in scan_inputs((2, 700, 2), 57))
+    kscan.linrec(a, b, yp)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="lookback_scope"):
+        with torch.cuda.graph(graph):
+            kscan.linrec(a, b, yp)
+
+
+@pytest.mark.cuda
+def test_rebinding_the_state_after_a_capture_raises(cuda):
+    """The replay checks that the bank holds the tensors it captured."""
+    cfg, bank = _small_bank(cuda)
+    xb = bank.to_device_block(_noise_blocks(bank.design.in_block, 1, 58)[0])
+    bank.step_device(xb)
+    bank.state = map_tensors(torch.clone, bank.state)
+    with pytest.raises(RuntimeError, match="rebound"):
+        bank.step_device(xb)
