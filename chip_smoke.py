@@ -50,18 +50,30 @@ Phases, each of which must pass (exit 1 on the first failure):
      once on every block with channels, and the decoder's wall ms per
      block against the block's 256 ms; then bank4 for 2 blocks with
      --save-iq --save-baseband --save-demod, each .dat parsed back.
- 10. mesh: the entry point with --mesh 1,1 (through the adapters) at
-     bank4's and chan64's full width: every RX's tone, the station
-     channels' tones >= 40 dB, an idle channel squelched silent; then the
-     streaming processors on a grid of cuda:0 four times against the
-     serial bank on the card over identical blocks made on the card: bank4
-     at 2 x 2, chan64 at 1 x 4 and 2 x 2, audio SNR > 55 dB with AGC off
-     and > 30 dB with AGC and squelch on, with their launches and
-     CUDA-event ms a call.
+ 10. mesh: the entry point with --mesh 1,1 (through the adapters, one
+     CUDA graph for the one shard) at bank4's and chan64's full width:
+     every RX's tone, the station channels' tones >= 40 dB, an idle
+     channel squelched silent; then the adapters on a grid of cuda:0
+     four times (bank4 at 2 x 2, chan64 at 1 x 4 and 2 x 2), graphed
+     (one graph a shard) against their eager twins (graph=False) over 64
+     calls, past sr_latch's 31-launch epoch wrap, with a retune and a
+     set_mode posted partway: every audio piece, baseband piece and
+     carried tensor bit-equal; the audio against the serial bank on the
+     card over identical blocks made on the card, SNR > 55 dB with AGC
+     off and > 30 dB with AGC and squelch on (on every call but the two
+     a control lands on, whose SNR is printed); the launches, CUDA-event
+     ms a call both ways, and torch.profiler's kernels a call, busy ms
+     and idle share over events of both.
  11. host surface: `python -m pysdr_tpu_torch.probe --smoke` names the
      card and passes; a 2-block bank4 replay with --jax-trace leaves a
      trace file; a 4-block bank4 replay (a CS8 capture made on the card)
-     at --pipeline-depth 2 prints stage_report() and its drain ms a block.
+     at --pipeline-depth 2 prints stage_report() and its drain ms a block;
+     then the soak: the same capture replayed looped through the graphed
+     bank4 for 256 blocks, the second half not >= 1.5x slower per block
+     than the first, RSS growth < 200 MB and memory_allocated() equal
+     after the 64-block warm-up and at the end (tests/test_soak.py's
+     thresholds); then that replay end to end serial and with --mesh
+     1,1 in turns, Msamp/s and the stages a block of each.
  12. bench: `python -m pysdr_tpu_torch.bench --quick` as a child on the
      card (every config at full width, 2 repetitions): its last line
      parses, each of its configs (the device-only ones graphed and each
@@ -79,7 +91,8 @@ Phases, each of which must pass (exit 1 on the first failure):
      ms against the untraced event ms).
 
 The banks of phases 4-12 run as the app runs them: on the card each
-step is one CUDA graph replay a block (models/graphstep).
+step is one CUDA graph replay a block (models/graphstep), and each
+--mesh shard one replay a call.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches summed over the paths' runs (phases 4,
@@ -93,6 +106,7 @@ pysdr_tpu module was loaded.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import statistics
@@ -165,6 +179,9 @@ RTTY_BLOCK = 24576                     # 256 ms of baseband a block
 RTTY_UP, RTTY_DOWN = 64, 3             # 96 kHz -> an RTL rate, 2.048 MHz
 RTTY_SHIFT = 120e3                     # the RX's offset from the center
 GRAPH_BLOCKS = 64                      # phase 13: past sr_latch's wrap at 31
+MESH_CALLS = 64                        # phase 10.2, past the same wrap
+MESH_CONTROL_CALLS = (21, 42)          # phase 10.2: a retune, a set_mode
+SOAK_BLOCKS = (64, 256)                # phase 11: warm-up, then the soak
 T0 = time.perf_counter()               # the phases print their start
 
 
@@ -806,6 +823,9 @@ def mesh_cli_phase(tmp):
         check(rc == 0 and a is not None, f"{argv} exited {rc}")
         check(type(a.bank).__name__ == adapter,
               f"--mesh 1,1 ran {type(a.bank).__name__}, not {adapter}")
+        print(f"{adapter}: graph_count {a.bank.graph_count}", flush=True)
+        check(a.bank.graph_count == 1, f"--mesh 1,1: "
+              f"{a.bank.graph_count} graphs, not one for its one shard")
         for name in kinds:
             check(launches[name] > 0, f"kernel {name} never launched on "
                   f"the {adapter} path")
@@ -848,15 +868,15 @@ def mesh_cli_phase(tmp):
 
 def station_blocks(offsets, kinds, audio_hz, fs, n, n_blocks, device,
                    amp=0.05, seed=0):
-    """n_blocks consecutive float32 (n, 2) RF blocks on `device`, one
-    station an offset: "am" (a 50 % AM tone), "fm" (5 kHz deviation by a
-    tone), "usb" (the tone above the carrier) or "cw" (a carrier); plus
-    noise 60 dB under a station. Phases from the exact sample index."""
+    """n_blocks consecutive float32 (n, 2) RF blocks on `device`, yielded
+    one by one, one station an offset: "am" (a 50 % AM tone), "fm" (5 kHz
+    deviation by a tone), "usb" (the tone above the carrier) or "cw" (a
+    carrier); plus noise 60 dB under a station. Phases from the exact
+    sample index."""
     import math
 
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
-    out = []
     for b in range(n_blocks):
         i = torch.arange(b * n, (b + 1) * n, dtype=torch.float64,
                          device=device)
@@ -878,8 +898,7 @@ def station_blocks(offsets, kinds, audio_hz, fs, n, n_blocks, device,
                 x = x + amp * torch.exp(1j * (ph + cyc(fa)))
             else:
                 x = x + amp * torch.exp(1j * ph)
-        out.append(torch.view_as_real(x.to(torch.complex64)).contiguous())
-    return out
+        yield torch.view_as_real(x.to(torch.complex64)).contiguous()
 
 
 def snr_db(ref, got):
@@ -890,74 +909,150 @@ def snr_db(ref, got):
     return 10 * np.log10(np.maximum(sig, 1e-30) / np.maximum(err, 1e-30))
 
 
-def sharded_vs_serial(bank_of, blocks, proc_of, grid, device, skip,
-                      channels, floor):
-    """The streaming processor of `proc_of(bank, mesh)` on an S x C grid
-    of `device` repeated, against the serial bank over the same blocks:
-    per-channel audio SNR after `skip` samples, checked against `floor`.
-    Returns (launches of the sharded calls, CUDA-event ms a call)."""
+def mesh_controls(bank, k, retune, mode):
+    """Phase 10.2's control changes, posted before call k: `retune` (an
+    RX and its new frequency) at MESH_CONTROL_CALLS[0], `mode` (an RX and
+    its new mode) at MESH_CONTROL_CALLS[1]."""
+    if k == MESH_CONTROL_CALLS[0]:
+        bank.retune(*retune)
+    elif k == MESH_CONTROL_CALLS[1]:
+        bank.set_mode(*mode)
+
+
+def carried(ad):
+    """An adapter's carried tensors: tail, bases, demod state."""
+    from pysdr_tpu_torch.device import leaves
+    return [ad._tail, ad._nb, ad._bb, *leaves(ad._dstate)]
+
+
+def adapters_vs_serial(bank_of, adapter_of, blocks, grid, device, skip,
+                       channels, floor, retune, mode, n_calls):
+    """Phase 10.2 on one grid: the adapter `adapter_of(bank, mesh, graph)`
+    on an S x C grid of `device` repeated, graphed (one CUDA graph a
+    shard) and its eager twin (graph=False), over n_calls calls of S
+    blocks from `blocks`, with mesh_controls posted to both and to the
+    serial bank at the same block: every audio piece, baseband piece and
+    carried tensor bit-equal between the two; the graphed audio against
+    the serial bank's (per-channel SNR after `skip` samples > floor);
+    then the CUDA-event ms a call both ways and torch.profiler's kernels
+    a call, busy ms and idle share of both. Returns (launches of the
+    calls of both adapters, results)."""
     import numpy as np
     import torch
 
     from pysdr_tpu_torch import kernels
     from pysdr_tpu_torch.parallel import mesh as mesh_mod
+    from pysdr_tpu_torch.runtime.profiler import profile_steps
 
-    serial = bank_of()
-    ref = np.concatenate([serial.audio_from_wire(serial.step_device(xb))
-                          for xb in blocks], axis=1)
     s, c = grid
-    mesh = mesh_mod.make_mesh(s, c, devices=[device] * (s * c))
-    bank = bank_of()
-    proc, halo = proc_of(bank, mesh)
-    n = bank.n_rx
-    state = [torch.zeros((halo, 2), dtype=torch.float32, device=device),
-             torch.zeros(n, dtype=torch.int64, device=device),
-             torch.zeros(n, dtype=torch.int64, device=device),
-             getattr(bank.state, "ch", bank.state).demod]
-    outs, ms = [], []
     on_card = torch.device(device).type == "cuda"
-    kernels.reset_launch_counts()
-    for k in range(len(blocks) // s):
-        x = torch.cat(blocks[k * s:(k + 1) * s])
-        if on_card:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-        res = proc(x, bank.params, *state)
-        if on_card:
-            ev[1].record()
-            ev[1].synchronize()
-            ms.append(ev[0].elapsed_time(ev[1]))
-        outs.append(mesh_mod.gather(res[0], mesh).numpy())
-        state = [res[3], res[1], res[2], res[4]]
-    if on_card:
-        torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    got = np.concatenate(outs, axis=1)
-    got = got.view(np.complex64)[..., 0] if got.dtype == np.float32 \
-        else got
-    snr = snr_db(ref[channels, skip:], got[channels, skip:])
-    print(f"  {s}x{c} grid, halo {halo}: {len(outs)} calls, launches "
-          f"{launches}, {statistics.median(ms) if ms else 0.0:.3f} ms a "
-          f"call (events); SNR against the serial bank min "
-          f"{snr.min():.1f} max {snr.max():.1f} dB (floor {floor})",
-          flush=True)
+    serial = bank_of()
+    mesh = mesh_mod.make_mesh(s, c, devices=[device] * (s * c))
+    g, e = adapter_of(bank_of(), mesh, True), adapter_of(bank_of(), mesh,
+                                                         False)
+    for ad in (g, e):
+        ad.prepare(torch.float32, ad.design.in_block)
+    check(g.graph_count == (s * c if on_card else 0)
+          and e.graph_count == 0,
+          f"{s}x{c}: {g.graph_count} graphs, eager {e.graph_count}")
+    ref, got, xs = [], [], []
+    t0 = time.perf_counter()
+    launches = {}
+    for k in range(n_calls):
+        xbs = [next(blocks) for _ in range(s)]
+        for b in (serial, g, e):
+            mesh_controls(b, k, retune, mode)
+        # the step's audio is its static output: a host copy of each
+        ref.extend(serial.audio_from_wire(
+            serial.step_device(xb).to("cpu", copy=True)) for xb in xbs)
+        x = torch.cat(xbs)
+        if len(xs) < 8:
+            xs.append(x)
+        kernels.reset_launch_counts()
+        pg = g.step_device(x)
+        bg = g._last_bb
+        pe = e.step_device(x)
+        for name, n in kernels.launch_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        for i, (a, b) in enumerate(zip(pg, pe)):
+            check(torch.equal(a, b), f"{s}x{c} call {k}: audio piece {i} "
+                  "of the graphs differs from the eager call's")
+        for i, (a, b) in enumerate(zip(bg or (), e._last_bb or ())):
+            check(torch.equal(a, b), f"{s}x{c} call {k}: baseband piece "
+                  f"{i} differs")
+        for i, (a, b) in enumerate(zip(carried(g), carried(e))):
+            check(torch.equal(a, b), f"{s}x{c} call {k}: carried tensor "
+                  f"{i} differs")
+        got.append(g.audio_from_wire(pg))
+    ref = np.concatenate(ref, axis=1)[channels]
+    got = np.concatenate(got, axis=1)[channels]
+    # the floor holds after `skip`, on every call but the two a control
+    # lands on: there the serial bank runs the new params from the old
+    # state while each shard re-settles its halo under them (the
+    # stream-parallel approximation, the JAX processors' as well)
+    per_call = got.shape[1] // n_calls
+    keep = np.ones(got.shape[1], bool)
+    keep[:skip] = False
+    landed = {}
+    for k in MESH_CONTROL_CALLS:
+        sl = slice(k * per_call, (k + 1) * per_call)
+        keep[sl] = False
+        if k < n_calls:
+            landed[k] = float(snr_db(ref[:, sl], got[:, sl]).min())
+    snr = snr_db(ref[:, keep], got[:, keep])
+    res = {"calls": n_calls, "graphs": g.graph_count, "halo": g.halo,
+           "snr_min_db": float(snr.min()), "snr_max_db": float(snr.max()),
+           "snr_min_db_control_calls": landed, "launches": launches}
+    print(f"  {s}x{c} grid, halo {g.halo}: {n_calls} calls graphed and "
+          f"eager bit-equal (audio, baseband, carried state), "
+          f"{g.graph_count} graphs, launches {launches}, in "
+          f"{time.perf_counter() - t0:.1f} s; SNR against the serial bank "
+          f"min {snr.min():.1f} max {snr.max():.1f} dB (floor {floor}), "
+          f"on the calls a control lands on {landed}", flush=True)
     check(snr.min() > floor, f"{s}x{c}: {snr.min():.1f} dB <= {floor}")
-    return launches, ms
+    if on_card:
+        for tag, ad in (("graph", g), ("eager", e)):
+            res[f"call_ms_{tag}"] = cuda_ms(
+                lambda ad=ad: ad.step_device(xs[0]), reps=10)
+            table = io.StringIO()
+            prof = profile_steps(ad, xs[:4], out=table)
+            # each hand kernel's device time in the call, and the summary
+            for ln in table.getvalue().splitlines():
+                if " kernel: " in ln or ln.startswith("profiled step"):
+                    print(f"  {tag}: {ln.strip()}", flush=True)
+            for key in ("kernels_per_step", "device_busy_ms",
+                        "device_idle_share"):
+                res[f"{key}_{tag}"] = prof[key]
+            res[f"device_idle_share_events_{tag}"] = max(
+                0.0, 1 - prof["device_busy_ms"] / res[f"call_ms_{tag}"])
+        print(f"  a call (events): graphs {res['call_ms_graph']:.3f} ms, "
+              f"eager {res['call_ms_eager']:.3f} ms; kernels "
+              f"{res['kernels_per_step_graph']:.0f} / "
+              f"{res['kernels_per_step_eager']:.0f}, busy "
+              f"{res['device_busy_ms_graph']:.3f} / "
+              f"{res['device_busy_ms_eager']:.3f} ms, idle over events "
+              f"{res['device_idle_share_events_graph']:.3f} / "
+              f"{res['device_idle_share_events_eager']:.3f}", flush=True)
+    return launches, res
 
 
 def mesh_stream_phase(device="cuda", bank4=BANK4, chan64=CHAN64,
-                      n_blocks=8):
-    """Phase 10.2: the streaming processors on a grid of one device
-    repeated 4 times against the serial bank over identical blocks, AGC
-    off (> 55 dB, tests/test_sharded_streaming.py:195) and AGC and
-    squelch on (> 30 dB, :232 and :300): bank4 at 2 x 2, chan64 at 1 x 4
-    and 2 x 2. Returns the launches of the sharded calls, summed."""
+                      n_calls=MESH_CALLS):
+    """Phase 10.2: the adapters (parallel/adapter) on a grid of one
+    device repeated 4 times, graphed against graph=False and against the
+    serial bank over identical blocks, AGC off (> 55 dB,
+    tests/test_sharded_streaming.py:195) and AGC and squelch on (> 30
+    dB, :232 and :300): bank4 at 2 x 2, chan64 at 1 x 4 and 2 x 2.
+    Returns the launches of the adapters' calls, summed, and the
+    results."""
     from pysdr_tpu_torch import app
     from pysdr_tpu_torch.models.channelizer_bank import ChannelizerBank
     from pysdr_tpu_torch.models.receiver import ReceiverBank
-    from pysdr_tpu_torch.parallel import chanshard, stream
+    from pysdr_tpu_torch.parallel.adapter import (ShardedChannelizerBank,
+                                                  ShardedStreamBank)
+    from pysdr_tpu_torch.tables import Mode
 
-    total = {}
+    total, out = {}, {}
 
     def add(counts):
         for k, n in counts.items():
@@ -969,17 +1064,20 @@ def mesh_stream_phase(device="cuda", bank4=BANK4, chan64=CHAN64,
                                (["--squelch", "-60"], 48000, 30.0)):
         args = app.build_parser().parse_args([*bank4, *extra])
         cfg = app.build_config(args)
-        print(f"bank4 {' '.join(extra)}:", flush=True)
+        tag = f"bank4 {' '.join(extra)}"
+        print(f"{tag}:", flush=True)
         d = ReceiverBank(cfg, device=device).design
         blocks = station_blocks(
             cfg.channel_offsets_hz(), [kinds[r.mode.name]
                                        for r in cfg.receivers],
             [400.0 * (i + 1) for i in range(len(cfg.receivers))],
-            cfg.fs_in, d.in_block, n_blocks, device)
-        launches, _ = sharded_vs_serial(
-            lambda: ReceiverBank(cfg, device=device), blocks,
-            lambda b, m: stream.make_streaming_processor(b, m, d.in_block),
-            (2, 2), device, skip, list(range(len(cfg.receivers))), floor)
+            cfg.fs_in, d.in_block, 2 * n_calls, device)
+        launches, out[f"{tag} 2x2"] = adapters_vs_serial(
+            lambda: ReceiverBank(cfg, emit_baseband=True, device=device),
+            lambda b, m, graph: ShardedStreamBank(b, m, graph=graph),
+            blocks, (2, 2), device, skip, list(range(len(cfg.receivers))),
+            floor, (1, cfg.receivers[1].fc_hz + 200.0), (0, Mode.USB),
+            n_calls)
         add(launches)
     for extra, skip, floor in ((["--no-agc", "--squelch", "-150"], 16384,
                                 55.0), ([], 48000, 30.0)):
@@ -987,21 +1085,23 @@ def mesh_stream_phase(device="cuda", bank4=BANK4, chan64=CHAN64,
             ["--device", device, *chan64, "--audio-wire", "f32", *extra]))
         offs = cfg.center_freqs_hz() - cfg.fc_hz
         stations = list(range(0, cfg.n_channels, 4))
-        print(f"chan64 {' '.join(extra) or '(AGC on, squelch 10 dB)'}:",
-              flush=True)
+        tag = f"chan64 {' '.join(extra) or '(AGC on, squelch 10 dB)'}"
+        print(f"{tag}:", flush=True)
         seg = ChannelizerBank(cfg, device=device).design.in_block
-        blocks = station_blocks(
-            [offs[i] for i in stations], ["am"] * len(stations),
-            [300.0 + 50.0 * i for i in stations], cfg.fs_in, seg, n_blocks,
-            device)
         for grid in ((1, 4), (2, 2)):
-            launches, _ = sharded_vs_serial(
-                lambda: ChannelizerBank(cfg, audio_wire="f32",
-                                        device=device), blocks,
-                lambda b, m: chanshard.make_channelizer_streaming_processor(
-                    b, m, seg), grid, device, skip, stations, floor)
+            blocks = station_blocks(
+                [offs[i] for i in stations], ["am"] * len(stations),
+                [300.0 + 50.0 * i for i in stations], cfg.fs_in, seg,
+                grid[0] * n_calls, device)
+            launches, out[f"{tag} {grid[0]}x{grid[1]}"] = \
+                adapters_vs_serial(
+                    lambda: ChannelizerBank(cfg, audio_wire="f32",
+                                            device=device),
+                    lambda b, m, graph: ShardedChannelizerBank(
+                        b, m, graph=graph), blocks, grid, device, skip,
+                    stations, floor, (4, 200.0), (4, Mode.USB), n_calls)
             add(launches)
-    return total
+    return total, out
 
 
 def bank4_cs8(path, n_blocks=5):
@@ -1060,6 +1160,91 @@ def host_surface_phase(tmp):
     print(f"bank4 replay, 4 blocks, --pipeline-depth 2: drain "
           f"{rep['drain']:.3f} ms a block", flush=True)
     print(f"stage_report ms/block: {rep}", flush=True)
+    soak_phase(replay)
+    mesh_e2e_phase(replay)
+
+
+def mesh_e2e_phase(replay, warm=4, blocks=24):
+    """Phase 11: bank4 end to end from the looped CS8 replay, serial and
+    through --mesh 1,1 (one shard, one graph, the 0.2 s halo on every
+    block) in turns (serial, mesh, mesh, serial): Msamp/s over `blocks`
+    blocks after `warm`, and the stages a block."""
+    import torch
+
+    from pysdr_tpu_torch import app
+
+    argv = [a for a in replay if a != "--no-loop"]
+    rates = {"serial": [], "mesh 1,1": []}
+    for tag in ("serial", "mesh 1,1", "mesh 1,1", "serial"):
+        extra = ["--mesh", "1,1"] if tag != "serial" else []
+        a = app.App(app.build_parser().parse_args([*argv, *extra]))
+        ex = a.ex
+        ex.run(n_blocks=warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.run(n_blocks=warm + blocks)
+        dt = time.perf_counter() - t0
+        ex.stop()
+        msps = blocks * a.bank.design.in_block / dt / 1e6
+        rates[tag].append(msps)
+        rep = ex.stage_report()
+        print(f"bank4 replay end to end, {tag}: {msps:.1f} Msamp/s "
+              f"({dt * 1e3 / blocks:.2f} ms a block), stages ms/block "
+              + " ".join(f"{k} {v:.2f}" for k, v in rep.items()),
+              flush=True)
+        check(ex.n_blocks == warm + blocks, f"{tag}: {ex.n_blocks} blocks")
+    print(f"bank4 end to end Msamp/s, in turns: {json.dumps(rates)}",
+          flush=True)
+
+
+def soak_phase(replay):
+    """Phase 11's soak (the card's twin of tests/test_soak.py): the
+    graphed bank4 App replaying a short CS8 capture looped, SOAK_BLOCKS
+    [0] blocks of warm-up, then to SOAK_BLOCKS[1] in two halves: the
+    second half not >= 1.5x slower than the first (+ 0.25 s), RSS growth
+    < 200 MB after the warm-up, and torch.cuda.memory_allocated() equal
+    after the warm-up and at the end (the executive's per-block pinned
+    upload, the graph's static buffers)."""
+    import resource
+
+    import torch
+
+    from pysdr_tpu_torch import app
+
+    def settled():
+        # the prefetch thread may still be uploading the blocks it reads
+        # ahead (a queue of 2 and one in hand): let it finish
+        time.sleep(1.0)
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(),
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024)
+
+    argv = [a for a in replay if a != "--no-loop"]
+    a = app.App(app.build_parser().parse_args(argv))
+    ex = a.ex
+    n_warm, n_end = SOAK_BLOCKS
+    ex.run(n_blocks=n_warm)
+    mem0, rss0 = settled()
+    t0 = time.perf_counter()
+    ex.run(n_blocks=(n_warm + n_end) // 2)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex.run(n_blocks=n_end)
+    t_second = time.perf_counter() - t0
+    mem1, rss1 = settled()
+    ex.stop()
+    half = (n_end - n_warm) // 2
+    print(f"soak: bank4 replay looped, {ex.n_blocks} blocks, "
+          f"{a.bank.graph_count} graph; blocks {n_warm}-{n_warm + half} "
+          f"{t_first * 1e3 / half:.2f} ms a block, the next {half} "
+          f"{t_second * 1e3 / half:.2f}; RSS {rss0:.1f} -> {rss1:.1f} MB; "
+          f"memory_allocated {mem0} -> {mem1} bytes", flush=True)
+    check(ex.n_blocks == n_end, f"soak ran {ex.n_blocks} blocks")
+    check(a.bank.graph_count == 1, f"soak: {a.bank.graph_count} graphs")
+    check(t_second < 1.5 * t_first + 0.25,
+          f"soak: second half {t_second:.2f} s, first {t_first:.2f} s")
+    check(rss1 - rss0 < 200.0, f"soak: RSS grew {rss1 - rss0:.1f} MB")
+    check(mem1 == mem0, f"soak: memory_allocated {mem0} -> {mem1}")
 
 
 def bench_phase():
@@ -1172,8 +1357,6 @@ def graph_phase():
     block's audio wire and every state tensor bit-equal, one graph
     (modes1ch across its three modes); then the CUDA-event ms a step both
     ways and each step's torch.profiler kernels, busy ms and idle share."""
-    import io
-
     import torch
 
     from pysdr_tpu_torch.device import leaves
@@ -1293,7 +1476,9 @@ def run():
     with tempfile.TemporaryDirectory() as tmp:
         phase("10 mesh")
         add(mesh_cli_phase(tmp))
-        add(mesh_stream_phase())
+        mesh_launches, mesh_res = mesh_stream_phase()
+        add(mesh_launches)
+        print("mesh phase: " + json.dumps(mesh_res), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         phase("11 host surface")
         host_surface_phase(tmp)

@@ -53,7 +53,10 @@ def leaves(obj) -> list:
 
 def copy_tensors(dst, src) -> None:
     """Copy every tensor of the dataclass `src` into the same field of
-    `dst` (same structure), in place: dst's tensors keep their storage."""
+    `dst` (same structure), in place: dst's tensors keep their storage.
+    A field that is None in dst is skipped."""
+    if dst is None:
+        return
     if isinstance(dst, torch.Tensor):
         if src is not dst:
             dst.copy_(src)

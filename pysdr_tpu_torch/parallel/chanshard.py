@@ -34,11 +34,10 @@ from pysdr_tpu_torch.models.channelizer_bank import (ChanBankState,
 from pysdr_tpu_torch.ops import channelizer as chan_ops
 from pysdr_tpu_torch.ops import cplx
 from pysdr_tpu_torch.ops import demod as demod_ops
-from pysdr_tpu_torch.ops import nco, resample
+from pysdr_tpu_torch.ops import resample
 from pysdr_tpu_torch.parallel.mesh import Mesh
-from pysdr_tpu_torch.parallel.stream import (cat_rows, channel_slices,
-                                             device_consts, from_last_rank,
-                                             left_halos, on_device,
+from pysdr_tpu_torch.parallel.stream import (StreamSplit, channel_slices,
+                                             device_consts, on_device,
                                              shifted_base)
 
 
@@ -132,28 +131,15 @@ def default_halo(cb: ChannelizerBank, settle_sec: float = 0.2) -> int:
     return -(-h // unit) * unit
 
 
-def make_channelizer_streaming_processor(cb: ChannelizerBank, mesh: Mesh,
-                                         seg: int,
-                                         halo: int | None = None,
-                                         audio_wire: str | None = None):
-    """State-continuous repeated-call form of the 2-D stream x ch
-    channelizer (see parallel/stream.make_streaming_processor for the
-    carried-state rationale): shard 0's halo comes from the previous
-    super-block's RF tail, shard s > 0's from the segment to its left;
-    per-channel fine-NCO/BFO phase bases advance across calls; the demod
-    recurrence state (AGC envelope, squelch latch, mute hold) carries
-    from the last stream shard; the audio wire (i16/i8 mu-law) is applied
-    inside each shard.
-
-    Returns (process, halo) with
-      process(x, params, tail_prev, nco_base, bfo_base, dstate)
-        -> (audio, new_nco_base, new_bfo_base, new_tail, new_dstate)
-    x: a wire block (S_local*seg, 2) on the mesh's first device; params:
-    cb.params; dstate: a DemodState of n_ch rows (seed with
-    cb.state.demod); audio: a tuple of one (n_ch / C, seg*up/(down*N), 2)
-    wire-dtype tensor a shard, in grid order. (The JAX form also takes
-    the DFT factors w_re, w_im; the FFT needs none.)
-    """
+def channelizer_split(cb: ChannelizerBank, mesh: Mesh, seg: int,
+                      halo: int | None = None,
+                      audio_wire: str | None = None) -> StreamSplit:
+    """The ChannelizerBank's StreamSplit (parallel/stream.py; the parts
+    of make_channelizer_streaming_processor). The shard body runs the
+    branch filter (pfb_branch on a card) over the shard's [halo |
+    segment] from a zero history, the channel transform, keeps its own
+    channels' columns and runs `cb.channel_chain` on them from a zero
+    resampler history."""
     n = cb.n_ch
     unit = n * cb.plan.down
     if seg % unit:
@@ -169,8 +155,7 @@ def make_channelizer_streaming_processor(cb: ChannelizerBank, mesh: Mesh,
             f"{seg / cb.cfg.fs_in * 1e3:.0f} ms) is shorter than the "
             f"recurrence-settle halo ({want / cb.cfg.fs_in * 1e3:.0f} "
             "ms): state only partially re-settles per call — use a "
-            "larger --block", stacklevel=3)
-    n_stream = mesh.n_stream
+            "larger --block", stacklevel=4)
     up, down = cb.plan.up, cb.plan.down
     aseg = seg * up // (down * n)
     ahalo = H * up // (down * n)
@@ -179,52 +164,62 @@ def make_channelizer_streaming_processor(cb: ChannelizerBank, mesh: Mesh,
     kp1 = resample.history_len(up * cb.cfg.video_taps_per_phase, up)
     n_hist = chan_ops.history_len(cb.chan_design)
     consts = _consts(cb, mesh)
-    last_row = mesh.stream_offset + len(mesh.devices) == n_stream
+
+    def body(sh, inp):
+        vb, ct, pt, bw = consts[sh.device]
+        dev, sl = sh.device, sh.rows
+        # the zero histories are device allocations (inside a capture,
+        # of the graph's pool), never a host tensor copied up
+        hist0 = torch.zeros(n_hist, dtype=torch.complex64, device=dev)
+        v, _ = chan_ops.branch_filter(inp.xe, hist0, bw)
+        y = chan_ops.channel_transform(v)[:, sl]
+        p = inp.params
+        ph = shifted_base(p.nco_k, inp.nco_base, m_seg, m_h, sh.stream)
+        b0 = shifted_base(p.demod.bfo_k, inp.bfo_base, aseg, ahalo,
+                          sh.stream)
+        rh0 = torch.zeros((sl.stop - sl.start, kp1), dtype=torch.complex64,
+                          device=dev)
+        a, _, _, new_d = cb.channel_chain(
+            y.T, ph, rh0, dataclasses.replace(inp.dstate, bfo_phase=b0), p,
+            consts=(vb, ct, pt))
+        audio = cplx.quantize_audio_wire(
+            torch.view_as_real(a[:, ahalo:]).contiguous(), wire)
+        return audio, None, new_d
+
+    return StreamSplit(mesh, seg, H, slices, m_seg, aseg, body)
+
+
+def make_channelizer_streaming_processor(cb: ChannelizerBank, mesh: Mesh,
+                                         seg: int,
+                                         halo: int | None = None,
+                                         audio_wire: str | None = None):
+    """State-continuous repeated-call form of the 2-D stream x ch
+    channelizer (see parallel/stream.make_streaming_processor for the
+    carried-state rationale): shard 0's halo comes from the previous
+    super-block's RF tail, shard s > 0's from the segment to its left;
+    per-channel fine-NCO/BFO phase bases advance across calls; the demod
+    recurrence state (AGC envelope, squelch latch, mute hold) carries
+    from the last stream shard; the audio wire (i16/i8 mu-law) is applied
+    inside each shard. The call is channelizer_split's head, shard bodies
+    and tail.
+
+    Returns (process, halo) with
+      process(x, params, tail_prev, nco_base, bfo_base, dstate)
+        -> (audio, new_nco_base, new_bfo_base, new_tail, new_dstate)
+    x: a wire block (S_local*seg, 2) on the mesh's first device; params:
+    cb.params; dstate: a DemodState of n_ch rows (seed with
+    cb.state.demod); audio: a tuple of one (n_ch / C, seg*up/(down*N), 2)
+    wire-dtype tensor a shard, in grid order. (The JAX form also takes
+    the DFT factors w_re, w_im; the FFT needs none.)
+    """
+    split = channelizer_split(cb, mesh, seg, halo, audio_wire)
 
     def process(x, params, tail_prev, nco_base, bfo_base, dstate):
-        # wire dequant precedes the halo exchange (parallel/stream.py)
-        xs = cplx.dequantize(x)
-        segs = [xs[r * seg:(r + 1) * seg] for r in range(len(mesh.devices))]
-        lefts = left_halos(segs, tail_prev, H, mesh)
-        audio, last = [], []
-        for r, row in enumerate(mesh.devices):
-            s = mesh.stream_offset + r
-            for dev, sl in zip(row, slices):
-                vb, ct, pt, bw = consts[dev]
-                with on_device(dev):
-                    xe = torch.cat([lefts[r].to(dev), segs[r].to(dev)])
-                    hist0 = torch.zeros(n_hist, dtype=torch.complex64,
-                                        device=dev)
-                    v, _ = chan_ops.branch_filter(xe, hist0, bw)
-                    y = chan_ops.channel_transform(v)[:, sl]
-                    p = map_tensors(lambda t: t[sl].to(dev), params)
-                    ph = shifted_base(p.nco_k, nco_base[sl].to(dev), m_seg,
-                                      m_h, s)
-                    b0 = shifted_base(p.demod.bfo_k, bfo_base[sl].to(dev),
-                                      aseg, ahalo, s)
-                    dst = dataclasses.replace(
-                        map_tensors(lambda t: t[sl].to(dev), dstate),
-                        bfo_phase=b0)
-                    rh0 = torch.zeros((sl.stop - sl.start, kp1),
-                                      dtype=torch.complex64, device=dev)
-                    a, _, _, new_d = cb.channel_chain(
-                        y.T, ph, rh0, dst, p, consts=(vb, ct, pt))
-                    audio.append(cplx.quantize_audio_wire(
-                        torch.view_as_real(a[:, ahalo:]).contiguous(),
-                        wire))
-                if last_row and r == len(mesh.devices) - 1:
-                    last.append(new_d)
-        first = mesh.first
-        new_tail = from_last_rank(
-            mesh, xs[-H:].clone() if last_row else tail_prev)
-        new_dstate = from_last_rank(
-            mesh, cat_rows(last, first) if last else dstate)
-        new_nb = nco.advance(params.nco_k, nco_base, n_stream * m_seg)
-        new_bb = nco.advance(params.demod.bfo_k, bfo_base, n_stream * aseg)
-        return (tuple(audio), new_nb.to(first), new_bb.to(first), new_tail,
-                new_dstate)
+        outs, *carried = split.process(x, params, tail_prev, nco_base,
+                                       bfo_base, dstate)
+        return (tuple(o.audio for o in outs), *carried)
 
-    return process, H
+    return process, split.halo
 
 
 def make_channelizer_stream_processor(cb: ChannelizerBank, mesh: Mesh,

@@ -53,6 +53,30 @@ class Mesh:
         return self.devices[0][0]
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """One shard of a mesh's local grid: its place in grid order (row by
+    row), its local row and column, its global stream index, its device
+    and the channel rows it owns."""
+    index: int
+    row: int
+    col: int
+    stream: int
+    device: torch.device
+    rows: slice
+
+
+def shards(mesh: Mesh, slices) -> list:
+    """The local shards in grid order; `slices[c]` the channel rows of
+    local column c."""
+    out = []
+    for r, row in enumerate(mesh.devices):
+        for c, (dev, sl) in enumerate(zip(row, slices)):
+            out.append(Shard(len(out), r, c, mesh.stream_offset + r, dev,
+                             sl))
+    return out
+
+
 def indexed(device) -> torch.device:
     """A torch.device with its index: "cuda" becomes the current card."""
     dev = torch.device(device)

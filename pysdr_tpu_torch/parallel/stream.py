@@ -38,7 +38,7 @@ from pysdr_tpu_torch.device import map_tensors
 from pysdr_tpu_torch.ops import cplx
 from pysdr_tpu_torch.ops import demod as demod_ops
 from pysdr_tpu_torch.ops import nco, resample
-from pysdr_tpu_torch.parallel.mesh import Mesh, gather
+from pysdr_tpu_torch.parallel.mesh import Mesh, Shard, gather, shards
 
 
 def default_halo(design, settle_sec: float = 0.2) -> int:
@@ -88,10 +88,11 @@ def device_consts(mesh: Mesh, tensors, demod_design) -> dict:
 
 def shifted_base(k, base, unit: int, back: int, s: int) -> torch.Tensor:
     """(base + k*(s*unit - back)) mod DENOM: the phase at the start of
-    stream shard s's halo. nco.advance keeps every product exact for ANY
-    shard index (the JAX package's int32 discipline, bit for bit)."""
-    return (base + nco.advance(nco.advance(k, 0, unit), 0, s)
-            - nco.advance(k, 0, back) + nco.DENOM) % nco.DENOM
+    stream shard s's halo. nco.mul_mod keeps every product exact for ANY
+    shard index (the JAX package's int32 discipline, bit for bit), and
+    takes python ints as kernel arguments, so a CUDA graph captures it."""
+    return (base + nco.mul_mod(nco.mul_mod(k, unit), s)
+            - nco.mul_mod(k, back) + nco.DENOM) % nco.DENOM
 
 
 def left_halos(segs: list, tail_prev: torch.Tensor, halo: int,
@@ -141,6 +142,175 @@ def cat_rows(parts: list, dev: torch.device):
                           for f in dataclasses.fields(first)})
 
 
+@dataclasses.dataclass
+class ShardIn:
+    """A shard's inputs: its RF [left halo | segment] as float32 (H +
+    seg, 2) pairs, and its rows of the params, of the carried NCO and BFO
+    phase bases and of the carried demod state, all on its device."""
+    xe: torch.Tensor
+    params: object
+    nco_base: torch.Tensor
+    bfo_base: torch.Tensor
+    dstate: object
+
+
+@dataclasses.dataclass
+class ShardOut:
+    """A shard's outputs: its audio wire piece, its baseband piece (or
+    None), and its new demod state rows where they are carried (a shard
+    of the last stream row), else None."""
+    audio: torch.Tensor
+    bb: torch.Tensor | None
+    dstate: object
+
+
+class StreamSplit:
+    """A state-continuous sharded processor in its three parts, the same
+    for the stream and the channelizer forms:
+
+      (a) `head`: the wire block dequantized and cut into the local
+          rows' segments, each with its left halo (left_halos' send/recv
+          across ranks); `shard_in` then gives each shard its inputs;
+      (b) `body(shard, inputs)`: the shard's device work, from its
+          inputs to its outputs — what a CUDA graph of the shard
+          captures (parallel/adapter.py);
+      (c) `tail`: the carried values of the next call: the last stream
+          row's demod state rows stacked, the new RF tail, the phase
+          bases advanced (from_last_rank's broadcasts across ranks).
+
+    `process` composes them into the functional processor; the adapters
+    run the same parts over static buffers."""
+
+    def __init__(self, mesh: Mesh, seg: int, halo: int, slices,
+                 nco_unit: int, bfo_unit: int, body):
+        self.mesh = mesh
+        self.seg = seg
+        self.halo = halo
+        self.shards = shards(mesh, slices)
+        self.last_row = \
+            mesh.stream_offset + len(mesh.devices) == mesh.n_stream
+        self._nco_unit = mesh.n_stream * nco_unit
+        self._bfo_unit = mesh.n_stream * bfo_unit
+        self._body = body
+
+    def carries(self, sh: Shard) -> bool:
+        """Whether shard sh's new demod state is carried to the next call
+        (it is on the grid's last stream row)."""
+        return self.last_row and sh.row == len(self.mesh.devices) - 1
+
+    def head(self, x, tail_prev):
+        """(a) x: the wire block (S_local*seg, 2) -> (the dequantized
+        block, [(left halo, segment)] a local row)."""
+        # int8/int16 wire blocks dequantize BEFORE the halo exchange, so
+        # the carried tail and the halo copies stay f32
+        xs = cplx.dequantize(x)
+        seg = self.seg
+        segs = [xs[r * seg:(r + 1) * seg]
+                for r in range(len(self.mesh.devices))]
+        return xs, list(zip(left_halos(segs, tail_prev, self.halo,
+                                       self.mesh), segs))
+
+    def shard_in(self, sh: Shard, pieces, params, nco_base, bfo_base,
+                 dstate) -> ShardIn:
+        """Shard sh's inputs as new tensors on its device."""
+        dev = sh.device
+        left, seg = pieces[sh.row]
+
+        def rows(t):
+            return t[sh.rows].to(dev)
+        return ShardIn(xe=torch.cat([left.to(dev), seg.to(dev)]),
+                       params=map_tensors(rows, params),
+                       nco_base=rows(nco_base), bfo_base=rows(bfo_base),
+                       dstate=map_tensors(rows, dstate))
+
+    def body(self, sh: Shard, inp: ShardIn) -> ShardOut:
+        """(b) Shard sh's work on its device's current stream."""
+        with on_device(sh.device):
+            audio, bb, new_d = self._body(sh, inp)
+        return ShardOut(audio=audio, bb=bb,
+                        dstate=new_d if self.carries(sh) else None)
+
+    def tail(self, xs, outs, params, tail_prev, nco_base, bfo_base,
+             dstate):
+        """(c) -> (nco_base, bfo_base, tail, dstate) of the next call, on
+        the mesh's first device."""
+        first, mesh = self.mesh.first, self.mesh
+        last = [o.dstate for o in outs if o.dstate is not None]
+        new_tail = from_last_rank(
+            mesh, xs[-self.halo:].clone() if self.last_row else tail_prev)
+        new_dstate = from_last_rank(
+            mesh, cat_rows(last, first) if last else dstate)
+        # cross-call state advances: pure elementwise
+        new_nb = nco.advance(params.nco_k, nco_base, self._nco_unit)
+        new_bb = nco.advance(params.demod.bfo_k, bfo_base, self._bfo_unit)
+        return new_nb.to(first), new_bb.to(first), new_tail, new_dstate
+
+    def process(self, x, params, tail_prev, nco_base, bfo_base, dstate):
+        """One call, functional: (shard outputs in grid order, nco_base,
+        bfo_base, tail, dstate of the next call)."""
+        xs, pieces = self.head(x, tail_prev)
+        outs = [self.body(sh, self.shard_in(sh, pieces, params, nco_base,
+                                            bfo_base, dstate))
+                for sh in self.shards]
+        return (outs, *self.tail(xs, outs, params, tail_prev, nco_base,
+                                 bfo_base, dstate))
+
+
+def stream_split(bank, mesh: Mesh, seg: int, halo: int | None = None,
+                 audio_wire: str | None = None,
+                 emit_bb: bool | None = None) -> StreamSplit:
+    """The ReceiverBank's StreamSplit (make_streaming_processor's
+    parts); the shard body is the bank's mix + resample, demod_block and
+    the audio-wire quantize, over the shard's [halo | segment]."""
+    design = bank.design
+    d, u = design.down, design.up
+    if seg % d:
+        raise ValueError(f"segment {seg} is not a multiple of down={d}")
+    want = default_halo(design) if halo is None else halo
+    H = min(want, seg)
+    if seg < want:
+        warnings.warn(
+            f"stream segment ({seg} samples, {seg / design.fs_in * 1e3:.0f}"
+            f" ms) is shorter than the recurrence-settle halo "
+            f"({want / design.fs_in * 1e3:.0f} ms): AGC/DC/squelch state "
+            "will only partially re-settle per call — use a larger --block",
+            stacklevel=4)
+    if H % d:
+        raise ValueError(f"halo {H} is not a multiple of down={d}")
+    slices = channel_slices(bank.n_rx, mesh, "receiver")
+    if len(slices) != mesh.n_ch:
+        raise ValueError("every channel shard of a stream row must be local")
+    out_halo = H * u // d
+    aseg = seg * u // d
+    wire = bank.audio_wire if audio_wire is None else audio_wire
+    if emit_bb is None:
+        emit_bb = bank.emit_baseband
+    kp1 = resample.history_len(design.video_taps, u)
+    consts = device_consts(mesh, (bank.video_bank, bank.carrier_taps,
+                                  bank.pilot_taps), design.demod)
+
+    def body(sh, inp):
+        vb, ct, pt = consts[sh.device]
+        p = inp.params
+        k = p.nco_k
+        xe = torch.view_as_complex(inp.xe)
+        p0 = shifted_base(k, inp.nco_base, seg, H, sh.stream)
+        p0m = nco.advance((nco.DENOM - k) % nco.DENOM, p0, kp1)
+        bb = resample.mixed_resample_bank(
+            xe, xe.new_zeros(kp1), vb[p.video_row], k, p0m, up=u, down=d)
+        b0 = shifted_base(p.demod.bfo_k, inp.bfo_base, aseg, out_halo,
+                          sh.stream)
+        a, new_d = demod_ops.demod_block(
+            bb, dataclasses.replace(inp.dstate, bfo_phase=b0), p.demod,
+            design.demod, ct, pt)
+        audio = cplx.quantize_audio_wire(
+            torch.view_as_real(a[:, out_halo:]).contiguous(), wire)
+        return (audio, bb[:, out_halo:].contiguous() if emit_bb else None,
+                new_d)
+
+    return StreamSplit(mesh, seg, H, slices, seg, aseg, body)
+
+
 def make_streaming_processor(bank, mesh: Mesh, seg: int,
                              halo: int | None = None,
                              audio_wire: str | None = None,
@@ -167,6 +337,7 @@ def make_streaming_processor(bank, mesh: Mesh, seg: int,
     The audio wire (i16/i8, ops/cplx.quantize_audio_wire) is applied
     INSIDE each shard, so the device->host return ships the small ints;
     with emit_bb each shard's baseband is returned too, for the RTTY tap.
+    The call is stream_split's head, shard bodies and tail.
 
     Returns (process, halo) with
       process(x, params, tail_prev, nco_base, bfo_base, dstate)
@@ -180,82 +351,16 @@ def make_streaming_processor(bank, mesh: Mesh, seg: int,
     grid order; bb: such a tuple of complex64 (n_rx / C, seg*up/down), or
     None. The carried values come back on the mesh's first device.
     """
-    design = bank.design
-    d, u = design.down, design.up
-    if seg % d:
-        raise ValueError(f"segment {seg} is not a multiple of down={d}")
-    want = default_halo(design) if halo is None else halo
-    H = min(want, seg)
-    if seg < want:
-        warnings.warn(
-            f"stream segment ({seg} samples, {seg / design.fs_in * 1e3:.0f}"
-            f" ms) is shorter than the recurrence-settle halo "
-            f"({want / design.fs_in * 1e3:.0f} ms): AGC/DC/squelch state "
-            "will only partially re-settle per call — use a larger --block",
-            stacklevel=3)
-    if H % d:
-        raise ValueError(f"halo {H} is not a multiple of down={d}")
-    slices = channel_slices(bank.n_rx, mesh, "receiver")
-    if len(slices) != mesh.n_ch:
-        raise ValueError("every channel shard of a stream row must be local")
-    n_stream = mesh.n_stream
-    out_halo = H * u // d
-    aseg = seg * u // d
-    wire = bank.audio_wire if audio_wire is None else audio_wire
-    if emit_bb is None:
-        emit_bb = bank.emit_baseband
-    kp1 = resample.history_len(design.video_taps, u)
-    consts = device_consts(mesh, (bank.video_bank, bank.carrier_taps,
-                                  bank.pilot_taps), design.demod)
-    last_row = mesh.stream_offset + len(mesh.devices) == n_stream
+    split = stream_split(bank, mesh, seg, halo, audio_wire, emit_bb)
 
     def process(x, params, tail_prev, nco_base, bfo_base, dstate):
-        # int8/int16 wire blocks dequantize BEFORE the halo exchange, so
-        # the carried tail and the halo copies stay f32
-        xs = cplx.dequantize(x)
-        segs = [xs[r * seg:(r + 1) * seg] for r in range(len(mesh.devices))]
-        lefts = left_halos(segs, tail_prev, H, mesh)
-        audio, bbs, last = [], [], []
-        for r, row in enumerate(mesh.devices):
-            s = mesh.stream_offset + r
-            for dev, sl in zip(row, slices):
-                vb, ct, pt = consts[dev]
-                with on_device(dev):
-                    xe = torch.view_as_complex(torch.cat(
-                        [lefts[r].to(dev), segs[r].to(dev)]).contiguous())
-                    p = map_tensors(lambda t: t[sl].to(dev), params)
-                    k = p.nco_k
-                    p0 = shifted_base(k, nco_base[sl].to(dev), seg, H, s)
-                    p0m = nco.advance((nco.DENOM - k) % nco.DENOM, p0, kp1)
-                    bb = resample.mixed_resample_bank(
-                        xe, xe.new_zeros(kp1), vb[p.video_row], k, p0m,
-                        up=u, down=d)
-                    b0 = shifted_base(p.demod.bfo_k, bfo_base[sl].to(dev),
-                                      aseg, out_halo, s)
-                    dst = dataclasses.replace(
-                        map_tensors(lambda t: t[sl].to(dev), dstate),
-                        bfo_phase=b0)
-                    a, new_d = demod_ops.demod_block(
-                        bb, dst, p.demod, design.demod, ct, pt)
-                    audio.append(cplx.quantize_audio_wire(
-                        torch.view_as_real(a[:, out_halo:]).contiguous(),
-                        wire))
-                    if emit_bb:
-                        bbs.append(bb[:, out_halo:].contiguous())
-                if last_row and r == len(mesh.devices) - 1:
-                    last.append(new_d)
-        first = mesh.first
-        new_dstate = cat_rows(last, first) if last else dstate
-        new_tail = from_last_rank(
-            mesh, xs[-H:].clone() if last_row else tail_prev)
-        new_dstate = from_last_rank(mesh, new_dstate)
-        # cross-call state advances: pure elementwise
-        new_nb = nco.advance(params.nco_k, nco_base, n_stream * seg)
-        new_bb = nco.advance(params.demod.bfo_k, bfo_base, n_stream * aseg)
-        return (tuple(audio), new_nb.to(first), new_bb.to(first),
-                new_tail, new_dstate, tuple(bbs) if emit_bb else None)
+        outs, *carried = split.process(x, params, tail_prev, nco_base,
+                                       bfo_base, dstate)
+        bbs = tuple(o.bb for o in outs)
+        return (tuple(o.audio for o in outs), *carried,
+                None if bbs[0] is None else bbs)
 
-    return process, H
+    return process, split.halo
 
 
 def make_stream_processor(bank, mesh: Mesh, seg: int,

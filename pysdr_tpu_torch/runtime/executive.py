@@ -5,8 +5,8 @@ post, stop, stage_report, run_in_thread).
 Per block the host reads (and wire-quantizes) the next IQ chunk while the
 device computes the current one: CUDA kernels run asynchronously and the
 step never waits on the card (its constants live on the device). A
-bank's step (ReceiverBank, ChannelizerBank; the --mesh adapters stay
-eager) is one CUDA graph replay a block, captured by `prepare`
+bank's step (ReceiverBank, ChannelizerBank) is one CUDA graph replay a
+block, a --mesh adapter's one replay a shard, captured by `prepare`
 before the prefetch thread starts (a capture fails if another thread
 works on the card meanwhile). Right after a block's step is issued, its
 audio wire (the step's static output, rewritten by the next step)
@@ -341,7 +341,13 @@ class Executive:
             self._pf_active.clear()
 
     def stop(self):
+        """End the run, and wait (2 s at most) for the prefetch thread to
+        leave: a process that exits while that thread is inside a device
+        copy aborts in the interpreter's shutdown."""
         self._stop.set()
+        t = self._pf_thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=2.0)
 
     def run_in_thread(self, **kw) -> threading.Thread:
         t = threading.Thread(target=self.run, kwargs=kw, daemon=True)

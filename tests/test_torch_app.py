@@ -81,6 +81,32 @@ def test_cli_replay_corpus_am_tones(tmp_path):
     assert snr0 > 40.0 and snr1 > 40.0, (snr0, snr1)
 
 
+def test_corpus_nfm_squelch_drop(tmp_path):
+    """tests/test_corpus.py::test_corpus_nfm_squelch_drop's twin, in this
+    process on the CPU with its assertions: the replay of
+    nfm_squelch_drop.dat through the port's App carries the NFM
+    station's 700 Hz tone while the squelch is open, and the squelch
+    closes on the tail (>= 10x quieter)."""
+    prefix = str(tmp_path / "nfm")
+    a = app.App(app.build_parser().parse_args(
+        ["--device", "cpu", "--replay",
+         os.path.join(FIX, "nfm_squelch_drop.dat"), "--no-loop", "--fc",
+         "100.0", "--mode", "NFM", "--squelch", "6", "--block", "4096",
+         "--wav", prefix]))
+    a.run()
+    w = wave.open(prefix + "_rx0.wav")
+    fr = w.getframerate()
+    d = np.frombuffer(w.readframes(w.getnframes()), np.int16).reshape(
+        -1, w.getnchannels())[:, 0].astype(np.float32)
+    open_seg = d[int(0.4 * fr):int(1.0 * fr)]
+    tail_seg = d[int(1.5 * fr):]
+    assert len(tail_seg) > fr // 4
+    sp = np.abs(np.fft.rfft(open_seg * np.hanning(len(open_seg))))
+    pk = np.fft.rfftfreq(len(open_seg), 1.0 / fr)[5 + np.argmax(sp[5:])]
+    assert abs(pk - 700.0) < 15.0, pk
+    assert np.std(open_seg) > 10.0 * max(np.std(tail_seg), 1e-9)
+
+
 def test_cli_without_a_card_fails_loudly():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

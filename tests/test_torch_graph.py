@@ -281,8 +281,9 @@ def test_step_keys_and_the_graph_flag():
 
 
 def test_mesh_adapter_prepares_nothing():
-    """The sharded processors stay eager: the executive's prepare on an
-    adapter makes no static buffers in the wrapped bank."""
+    """The executive's prepare on an adapter makes the adapter's own
+    static buffers (one set a shard, parallel/adapter.py), none in the
+    wrapped bank, whose step never runs."""
     from pysdr_tpu_torch.parallel import mesh as mesh_mod
     from pysdr_tpu_torch.parallel.adapter import ShardedStreamBank
     bank = ReceiverBank(bank4_cfg(config, tables.Mode), device="cpu")

@@ -750,9 +750,10 @@ def test_drain_waits_for_its_block_alone(cuda):
 
 @pytest.mark.cuda
 def test_stream_shards_on_one_card_match_the_serial_bank(cuda):
-    """A 2 x 2 grid of one card: every shard runs the scan kernels (three
-    linrec passes and one sr_latch a shard a call), issued in turn from
-    this thread, and the audio matches the serial bank on the card."""
+    """A 2 x 2 grid of one card, each shard a CUDA graph replayed in
+    turn from this thread: every shard runs the scan kernels (three
+    linrec passes and one sr_latch a shard a call), and the audio matches
+    the serial bank on the card."""
     from pysdr_tpu_torch.parallel import mesh as mesh_mod
     from pysdr_tpu_torch.parallel.adapter import ShardedStreamBank
     cfg, serial = _small_bank(cuda, "f32", agc=False)
@@ -762,6 +763,10 @@ def test_stream_shards_on_one_card_match_the_serial_bank(cuda):
     xs = _noise_blocks(bank.design.in_block, 8, 32)
     ref = np.concatenate([serial.step(x) for x in xs], axis=1)
     outs = []
+    # one graph a shard, captured before the count starts (the capture's
+    # warm-up launches the kernels once more)
+    ad.prepare(torch.float32, ad.design.in_block)
+    assert ad.graph_count == 4
     kernels.reset_launch_counts()
     for k in range(4):
         x = np.concatenate(xs[2 * k:2 * k + 2])
@@ -777,6 +782,7 @@ def test_stream_shards_on_one_card_match_the_serial_bank(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:stream segment")
 def test_channel_shards_on_one_card_match_the_serial_bank(cuda):
     """Channel shards of one card: pfb_branch runs once a shard a call and
     each shard's channels equal the serial bank's."""
@@ -793,6 +799,27 @@ def test_channel_shards_on_one_card_match_the_serial_bank(cuda):
                                     "ch", [cuda] * 4), n_blocks=3)
     assert kernels.launch_counts()["pfb_branch"] == 12
     np.testing.assert_allclose(got, ref, atol=2e-4)
+    # the streaming adapter over the same grid, graphed (one graph a
+    # shard, pfb_branch once a replay) and eager, bit for bit
+    from pysdr_tpu_torch.parallel.adapter import ShardedChannelizerBank
+    ads = [ShardedChannelizerBank(
+        ChannelizerBank(cfg, device=cuda),
+        mesh_mod.single_axis_mesh("ch", [cuda] * 4), graph=graph)
+        for graph in (True, False)]
+    for ad in ads:
+        ad.prepare(torch.float32, ad.design.in_block)
+    assert [ad.graph_count for ad in ads] == [4, 0]
+    for x in xs:
+        xb = serial.to_device_block(x)
+        counts, held = [], []
+        for ad in ads:
+            kernels.reset_launch_counts()
+            held.append([p.clone() for p in ad.step_device(xb)])
+            torch.cuda.synchronize()
+            counts.append(kernels.launch_counts())
+        assert counts[0] == counts[1] and counts[0]["pfb_branch"] == 4
+        for p, q in zip(*held):
+            assert torch.equal(p, q)
 
 
 # ---- the banks' step captured as a CUDA graph (models/graphstep) ----
@@ -949,3 +976,96 @@ def test_rebinding_the_state_after_a_capture_raises(cuda):
     bank.state = map_tensors(torch.clone, bank.state)
     with pytest.raises(RuntimeError, match="rebound"):
         bank.step_device(xb)
+
+
+# ---- the --mesh adapters, one CUDA graph a shard (parallel/adapter) ----
+
+def _mesh_adapter(kind, cuda, graph):
+    """bank4-shaped (2 x 2) or chan64-shaped (1 x 4) adapter on a grid of
+    the card four times, at the bench's full width."""
+    from pysdr_tpu_torch.parallel import mesh as mesh_mod
+    from pysdr_tpu_torch.parallel.adapter import (ShardedChannelizerBank,
+                                                  ShardedStreamBank)
+    bank = _graph_bank(kind, cuda, graph=True)
+    if kind == "bank4":
+        return ShardedStreamBank(bank, mesh_mod.make_mesh(
+            2, 2, devices=[cuda] * 4), graph=graph)
+    return ShardedChannelizerBank(bank, mesh_mod.make_mesh(
+        1, 4, devices=[cuda] * 4), graph=graph)
+
+
+def _carried(ad):
+    return [ad._tail, ad._nb, ad._bb, *leaves(ad._dstate)]
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:stream segment")
+@pytest.mark.parametrize("kind", ["bank4", "chan64"])
+def test_graphed_mesh_adapter_equals_eager(cuda, kind):
+    """40 calls, past sr_latch's epoch wrap at 31 launches, through the
+    graphed adapter (one graph a shard) and an eager twin fed the same
+    i8 blocks, a retune and a set_mode posted partway: every audio
+    piece and every carried tensor bit-equal, and a call's replays
+    launch the kernels the eager call launches."""
+    g = _mesh_adapter(kind, cuda, graph=True)
+    e = _mesh_adapter(kind, cuda, graph=False)
+    n = g.design.in_block
+    for ad in (g, e):
+        ad.prepare(torch.int8, n)
+    assert g.graph_count == 4 and e.graph_count == 0
+    xbs = _wire_blocks(n, "i8", 4, 61, cuda)
+    for k in range(40):
+        for ad in (g, e):
+            if k == 13:
+                ad.retune(1, 100.501e6 if kind == "bank4" else 4e3)
+            elif k == 27:
+                ad.set_mode(0, Mode.NFM)
+        counts, held = [], []
+        for ad in (g, e):
+            kernels.reset_launch_counts()
+            held.append([p.clone() for p in ad.step_device(xbs[k % 4])])
+            torch.cuda.synchronize()
+            counts.append(kernels.launch_counts())
+        assert counts[0] == counts[1], (kind, k, counts)
+        assert counts[0]["linrec"] == 12, (kind, k, counts)
+        for i, (p, q) in enumerate(zip(*held)):
+            assert torch.equal(p, q), (kind, k, i)
+        for i, (p, q) in enumerate(zip(_carried(g), _carried(e))):
+            assert torch.equal(p, q), (kind, k, "carried", i)
+    assert int(g.params.demod.mode[0]) == int(Mode.NFM)
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:stream segment")
+def test_mesh_executive_depth_2_drains_as_depth_1(cuda):
+    """The executive over a graphed 2 x 2 stream adapter on the card (i16
+    RF and audio wires, prefetch on): depth 2, where each call's audio
+    pieces wait in the pipeline while the next call replays over the
+    same static outputs, drains the audio of depth 1, bit for bit."""
+    from pysdr_tpu_torch.parallel import mesh as mesh_mod
+    from pysdr_tpu_torch.parallel.adapter import ShardedStreamBank
+    from pysdr_tpu_torch.runtime.executive import Executive
+
+    class Blocks:
+        def __init__(self, xs):
+            self.xs = list(xs)
+
+        def read_data(self, n, loop=False):
+            return self.xs.pop(0) if self.xs else np.zeros(0, np.complex64)
+
+    got = {}
+    for depth in (1, 2):
+        cfg, bank = _small_bank(cuda)
+        ad = ShardedStreamBank(bank, mesh_mod.make_mesh(
+            2, 2, devices=[cuda] * 4))
+        xs = _noise_blocks(ad.design.in_block, 6, 62)
+        out = got[depth] = []
+        ex = Executive(ad, Blocks(xs), loop_source=False, wire="i16",
+                       pipeline_depth=depth,
+                       psd_callback=lambda ex, audio, out=out:
+                       out.append(audio.copy()))
+        ex.run(n_blocks=len(xs))
+        ex.stop()
+        assert ad.graph_count == 4 and len(out) == len(xs)
+    for k, (a, b) in enumerate(zip(got[1], got[2])):
+        np.testing.assert_array_equal(a, b, err_msg=str(k))

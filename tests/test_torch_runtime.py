@@ -73,6 +73,31 @@ def test_host_copy_drain_same_audio_at_depths(depth):
         pulled, np.concatenate([a[1] for a in ref_audio]))
 
 
+class SlowSource(RampSource):
+    """RampSource whose reads take 50 ms, as a large block's read and
+    quantize do."""
+
+    def read_data(self, n, loop=True):
+        time.sleep(0.05)
+        return super().read_data(n, loop)
+
+
+def test_stop_waits_for_the_prefetch_thread():
+    """stop() returns with the prefetch thread gone, though the thread
+    was reading ahead when the run ended: a process exiting right after
+    stop() finds no thread of the executive inside a copy."""
+    cfg = PipelineConfig(fs_in=512e3, fs_out=48e3, out_block=1024,
+                         foffset_hz=60e3, receivers=(
+                             ReceiverConfig(fc_hz=10e6, mode=Mode.AM),))
+    ex = Executive(ReceiverBank(cfg, device="cpu"), SlowSource())
+    ex.run(n_blocks=3)
+    t = ex._pf_thread
+    assert t is not None and t.is_alive()
+    ex.stop()
+    assert not t.is_alive()
+    assert ex.n_blocks == 3
+
+
 class ReconnectingServer(rtltcp.FakeRtlTcpServer):
     """An rtl_tcp server that takes every connection, sends its header
     0.3 s later and then never a sample."""
