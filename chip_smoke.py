@@ -38,7 +38,8 @@ Phases, each of which must pass (exit 1 on the first failure):
      channels that carry a station show its 300 + 50*i Hz tone >= 40 dB
      over the floor, an idle channel is squelched silent, RF.png and
      AF0.png parse; then the web viewer's /frame.json over a 3-block run
-     shows 64 channels.
+     shows 64 channels; both runs' displays graphed (one CUDA graph a
+     pane).
   8. chan64 CUDA vs CPU: as 6, for the channelizer bank (>= 60 dB on the
      channels that carry a station).
   9. rtty path: the entry point with examples/rtty_decode.sh's flags on
@@ -89,6 +90,19 @@ Phases, each of which must pass (exit 1 on the first failure):
      CUDA-event ms a step both ways, and torch.profiler's kernels a step,
      busy ms and idle share of both (the profiled window's, and the busy
      ms against the untraced event ms).
+ 14. display: bank4's display engine (RF pane at 4,096,000 samples, AF
+     and BB panes at 24576) and chan64's (RF at 786,432), graphed (one
+     CUDA graph a pane and block length, replayed on the display's own
+     stream) against eager twins (graph=False) over 64 updates of each
+     pane kind with a retune, a dynamic-range change, a clear and a
+     peak-height change between them: every frame bit-equal, and the DR
+     change shown in the next frame; each pane's update ms (CUDA events
+     on its stream, and wall), kernels and copies an update, busy ms,
+     graphed and eager; then bank4 from a looped CS8 replay through the
+     App at --pipeline-depth 2 with --psd --psd-every 1 graphed, eager
+     and with no display, in turns over 3 rounds: Msamp/s, stages a
+     block, the hook's wall ms a block; the graphed run's last RF frame
+     equal to the eager run's, RX0's carrier among its peaks.
 
 The banks of phases 4-12 run as the app runs them: on the card each
 step is one CUDA graph replay a block (models/graphstep), and each
@@ -179,6 +193,8 @@ RTTY_BLOCK = 24576                     # 256 ms of baseband a block
 RTTY_UP, RTTY_DOWN = 64, 3             # 96 kHz -> an RTL rate, 2.048 MHz
 RTTY_SHIFT = 120e3                     # the RX's offset from the center
 GRAPH_BLOCKS = 64                      # phase 13: past sr_latch's wrap at 31
+DISPLAY_UPDATES = 64                   # phase 14: graphed vs eager a pane
+E2E_DISPLAY_ROUNDS = 3                 # phase 14: turns of the three runs
 MESH_CALLS = 64                        # phase 10.2, past the same wrap
 MESH_CONTROL_CALLS = (21, 42)          # phase 10.2: a retune, a set_mode
 SOAK_BLOCKS = (64, 256)                # phase 11: warm-up, then the soak
@@ -577,6 +593,11 @@ def chan64_phase(tmp):
         print(f"ch{i} (idle, squelch 10 dB): max |sample| over the last "
               f"half {tail}", flush=True)
         check(tail == 0, f"idle ch{i} is not squelched: {tail}")
+    disp = a.display
+    print(f"display: {disp.graph_count} graphs over {len(disp.panes)} "
+          "panes", flush=True)
+    check(disp.graph_count == len(disp.panes), "the chan64 display did "
+          f"not run graphed: {disp.graph_count} graphs")
     for tag in ("RF", "AF0"):
         w, h = png_size(os.path.join(png, f"{tag}.png"))
         print(f"{tag}.png {w}x{h}", flush=True)
@@ -597,7 +618,10 @@ def chan64_phase(tmp):
     finally:
         web_app.stop_services()
     print(f"/frame.json: ok {fr.get('ok')} n_rx {fr.get('n_rx')} rf rows "
-          f"{fr.get('rf', {}).get('rows')}", flush=True)
+          f"{fr.get('rf', {}).get('rows')}, display graphs "
+          f"{web_app.display.graph_count}", flush=True)
+    check(web_app.display.graph_count == len(web_app.display.panes),
+          "the web viewer's display did not run graphed")
     check(fr.get("ok") and fr.get("n_rx") == 64 and len(fr["rx"]) == 64,
           f"/frame.json: ok {fr.get('ok')} n_rx {fr.get('n_rx')}")
     return launches
@@ -1416,6 +1440,254 @@ def graph_phase():
     return out
 
 
+def display_controls(box, k):
+    """Phase 14's controls between updates: a retune by 40 bins, the
+    dynamic range to 30 dB, a clear, the peak height to 15 dB."""
+    if k == 11:
+        box.retune(box.fc_hz + 40 * box.design.fs / box.cfg.nfft)
+    elif k == 23:
+        box.cfg.pan_dr_db = 30.0
+    elif k == 37:
+        box.clear()
+    elif k == 45:
+        box.cfg.peak_height_db = 15.0
+
+
+def frames_equal(a, b):
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def host_blocks(n, count, seed):
+    """count host complex64 blocks of n samples: normals of rms 0.3 a
+    part, from a seeded generator."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(0.3 * rng.standard_normal(2 * n, dtype=np.float32))
+            .view(np.complex64) for _ in range(count)]
+
+
+def pane_of(engine, tag):
+    return next(b for b in engine.panes if b.tag == tag)
+
+
+def update_ms(box, xs, reps=20):
+    """(median CUDA-event ms, median wall ms) of box.update over reps
+    updates after 3: the events bracket the update on the pane's
+    stream (its host staging, upload, replay or body, and pull: the
+    stream is idle before it, so the first event fires at the call)."""
+    import torch
+    for i in range(3):
+        box.update(xs[i % len(xs)])
+    ev, wall = [], []
+    for i in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(box.stream)
+        t0 = time.perf_counter()
+        box.update(xs[i % len(xs)])
+        wall.append((time.perf_counter() - t0) * 1e3)
+        b.record(box.stream)
+        b.synchronize()
+        ev.append(a.elapsed_time(b))
+    return statistics.median(ev), statistics.median(wall)
+
+
+def update_kernels(box, xs, reps=5):
+    """torch.profiler over reps updates: (kernels an update, copies an
+    update, the kernels' device busy ms an update, the copies' device
+    ms an update). Inside a graph a device-to-device copy is listed as
+    a kernel."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            box.update(xs[i % len(xs)])
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in dev if e.key.startswith(("Memcpy", "Memset"))]
+    kern = [e for e in dev if e not in copies]
+    return (sum(e.count for e in kern) / reps,
+            sum(e.count for e in copies) / reps,
+            sum(e.self_device_time_total for e in kern) / reps / 1e3,
+            sum(e.self_device_time_total for e in copies) / reps / 1e3)
+
+
+def display_pane_phase():
+    """Phase 14, the panes: bank4's display engine (RF at 4,096,000
+    samples, AF0 and BB0 at 24576, 9 panes) and chan64's (RF at 786,432,
+    9 panes), graphed and eager (graph=False), each prepared: one graph
+    a (pane, block length); DISPLAY_UPDATES updates of each pane kind
+    with display_controls between them, every frame bit-equal to the
+    eager twin's, and on AF0 a graphed twin kept at 60 dB whose frames
+    equal until the dynamic range changes and differ after; then each
+    pane's update ms (events, wall) and kernels, graphed and eager."""
+    import dataclasses
+
+    from pysdr_tpu_torch.models.display import DisplayEngine, ThreeBox
+
+    out = {}
+    for kind, tags in (("bank4", ("RF", "AF0", "BB0")), ("chan64", ("RF",))):
+        bank, _ = graph_banks(kind, True)
+        eng = {g: DisplayEngine(bank, show_baseband=kind == "bank4",
+                                graph=g) for g in (True, False)}
+        t0 = time.perf_counter()
+        eng[True].prepare()
+        t_prep = time.perf_counter() - t0
+        eng[False].prepare()
+        n_panes = len(eng[True].panes)
+        check(eng[True].graph_count == n_panes
+              and all(b.graph_count == 1 for b in eng[True].panes)
+              and eng[False].graph_count == 0,
+              f"{kind} display: {eng[True].graph_count} graphs over "
+              f"{n_panes} panes, eager {eng[False].graph_count}")
+        print(f"{kind} display: {n_panes} panes, {eng[True].graph_count} "
+              f"graphs (one a pane and block length), captured in "
+              f"{t_prep:.2f} s", flush=True)
+        for seed, tag in enumerate(tags):
+            g, e = pane_of(eng[True], tag), pane_of(eng[False], tag)
+            n = g.lengths[0]
+            xs = host_blocks(n, 8, 140 + seed)
+            keep = None
+            if tag == "AF0":
+                keep = ThreeBox(dataclasses.replace(g.cfg), device="cuda",
+                                stream=eng[True].stream)
+                keep.prepare(n)
+            t0 = time.perf_counter()
+            for k in range(DISPLAY_UPDATES):
+                for box in (g, e):
+                    display_controls(box, k)
+                fg, fe = g.update(xs[k % 8]), e.update(xs[k % 8])
+                check(frames_equal(fg, fe), f"{kind} {tag} update {k}: "
+                      "the graphed frame differs from the eager one")
+                if keep is not None:
+                    if k != 23:
+                        display_controls(keep, k)
+                    fk = keep.update(xs[k % 8])
+                    same = frames_equal(fg, fk)
+                    check(same == (k < 23), f"{kind} {tag} update {k}: "
+                          f"the frame {'equals' if same else 'differs from'}"
+                          " the twin kept at 60 dB")
+            print(f"{kind} {tag} ({n} samples): {DISPLAY_UPDATES} updates "
+                  "graphed and eager bit-equal across a retune, a DR "
+                  "change, a clear and a peak-height change"
+                  + (", the DR change shown in the next frame"
+                     if keep is not None else "")
+                  + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+            res = {"samples": n}
+            for mode, box in (("graph", g), ("eager", e)):
+                ev, wall = update_ms(box, xs)
+                kern, copies, busy, copy_ms = update_kernels(box, xs)
+                res.update({f"update_ms_events_{mode}": ev,
+                            f"update_ms_wall_{mode}": wall,
+                            f"kernels_{mode}": kern,
+                            f"copies_{mode}": copies,
+                            f"busy_ms_{mode}": busy,
+                            f"copy_ms_{mode}": copy_ms})
+            print(f"  {tag}: update graphed {res['update_ms_events_graph']:.3f}"
+                  f" ms (events) / {res['update_ms_wall_graph']:.3f} ms "
+                  f"(wall), {res['kernels_graph']:.0f} kernels, "
+                  f"{res['copies_graph']:.0f} copies, busy "
+                  f"{res['busy_ms_graph']:.3f} ms, copies "
+                  f"{res['copy_ms_graph']:.3f} ms; eager "
+                  f"{res['update_ms_events_eager']:.3f} / "
+                  f"{res['update_ms_wall_eager']:.3f} ms, "
+                  f"{res['kernels_eager']:.0f} kernels, "
+                  f"{res['copies_eager']:.0f} copies, busy "
+                  f"{res['busy_ms_eager']:.3f} ms, copies "
+                  f"{res['copy_ms_eager']:.3f} ms", flush=True)
+            check(res["kernels_graph"] > 0, f"{kind} {tag}: torch.profiler "
+                  "saw no kernel of the graph")
+            out[f"{tag} {kind}"] = res
+    return out
+
+
+def display_e2e_phase(tmp, warm=4, blocks=24):
+    """Phase 14, end to end: bank4 from a looped CS8 replay through the
+    App at --pipeline-depth 2, with --psd --psd-every 1 graphed, the same
+    with the eager display (graph=False) and with no display, in turns
+    (E2E_DISPLAY_ROUNDS rounds, the order reversed every other round):
+    Msamp/s over `blocks` blocks after `warm`, the stages a block, and
+    the wall ms the executive's per-block hook (psd_callback) takes a
+    block. The last RF frame of the graphed run equals the eager run's
+    (the same blocks from the file's start), and shows RX0's AM carrier
+    among its peaks."""
+    import numpy as np
+    import torch
+
+    from pysdr_tpu_torch import app
+    from pysdr_tpu_torch.models.display import DisplayEngine
+
+    path = os.path.join(tmp, "bank4_cs8_e2e.dat")
+    bank4_cs8(path)
+    argv = ["--device", "cuda", "--replay", path, *BANK4, "--wire", "i8",
+            "--audio-wire", "i16", "--pipeline-depth", "2"]
+    psd = ["--psd", "--psd-every", "1"]
+    out = {t: {"msps": [], "hook_ms": [], "stages": []}
+           for t in ("graph", "eager", "none")}
+    order = ("graph", "eager", "none")
+    for r in range(E2E_DISPLAY_ROUNDS):
+        frames = {}
+        for tag in (order if r % 2 == 0 else order[::-1]):
+            a = app.App(app.build_parser().parse_args(
+                [*argv, *(psd if tag != "none" else [])]))
+            if tag == "eager":
+                a.display = DisplayEngine(a.bank, decimate=1, graph=False)
+                a.display.rf.cfg.pan_dr_db = a.args.pan_dr
+            ex = a.ex
+            hook_ms = []
+            if ex.psd_callback is not None:
+                tap = ex.psd_callback
+
+                def timed(e, audio, tap=tap, hook_ms=hook_ms):
+                    t0 = time.perf_counter()
+                    tap(e, audio)
+                    hook_ms.append((time.perf_counter() - t0) * 1e3)
+                ex.psd_callback = timed
+            ex.prepare()
+            ex.run(n_blocks=warm)
+            torch.cuda.synchronize()
+            del hook_ms[:]
+            t0 = time.perf_counter()
+            ex.run(n_blocks=warm + blocks)
+            dt = time.perf_counter() - t0
+            ex.stop()
+            check(ex.n_blocks == warm + blocks,
+                  f"{tag}: {ex.n_blocks} blocks")
+            msps = blocks * a.bank.design.in_block / dt / 1e6
+            rep = ex.stage_report()
+            hook = statistics.median(hook_ms) if hook_ms else 0.0
+            out[tag]["msps"].append(msps)
+            out[tag]["hook_ms"].append(hook)
+            out[tag]["stages"].append(rep)
+            if a.display is not None:
+                check(a.display.graph_count == (len(a.display.panes)
+                                                if tag == "graph" else 0),
+                      f"{tag}: {a.display.graph_count} display graphs")
+                frames[tag] = (a.display.frames["RF"], a.display.rf,
+                               a.cfg.receivers[0].fc_hz)
+            print(f"bank4 replay end to end, display {tag}: {msps:.1f} "
+                  f"Msamp/s ({dt * 1e3 / blocks:.2f} ms a block), hook "
+                  f"{hook:.2f} ms a block (median), stages ms/block "
+                  + " ".join(f"{k} {v:.2f}" for k, v in rep.items()),
+                  flush=True)
+        fg, box, fc0 = frames["graph"]
+        check(frames_equal(fg, frames["eager"][0]), "end to end: the "
+              "graphed display's last RF frame differs from the eager one")
+        df = box.design.fs / box.cfg.nfft
+        near = np.abs(fg.peak_freqs_hz - fc0) <= 2 * df
+        check(np.isfinite(fg.psd_db).all() and near.any(),
+              f"end to end: RX0's carrier at {fc0} Hz not among the RF "
+              f"peaks {fg.peak_freqs_hz}")
+    print("display end to end: " + json.dumps(
+        {t: {"msps": v["msps"], "hook_ms": v["hook_ms"]}
+         for t, v in out.items()}), flush=True)
+    return out
+
+
 def run():
     try:
         import torch
@@ -1486,6 +1758,11 @@ def run():
     bench_line = bench_phase()
     phase("13 graph")
     graph_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("14 display")
+        print("display phase: " + json.dumps(display_pane_phase()),
+              flush=True)
+        display_e2e_phase(tmp)
 
     # of this repository, only the port ran: no JAX, no pysdr_tpu module
     jaxish = sorted(m for m in sys.modules if m in ("jax", "pysdr_tpu")

@@ -647,6 +647,9 @@ class App:
             # carry the baseband only when something reads it
             want_bb=(self.rtty is not None or self.bb_writer is not None
                      or bool(args.bb)))
+        # the display's panes are captured with the bank's step, before
+        # the prefetch thread and the services start
+        self.ex.prepare_hooks.append(self._prepare_display)
         if args.ant and hasattr(self.source, "set_antenna"):
             self.source.set_antenna(args.ant)
         inner_bank = getattr(self.bank, "bank", self.bank)  # mesh adapter
@@ -734,6 +737,10 @@ class App:
                 self.ex, [(f * 1e6, self.cfg.receivers[0].mode)
                           for f in (args.hop or [])],
                 dwell_s=args.dwell, schedule=sched)
+
+    def _prepare_display(self):
+        if self.display is not None:
+            self.display.prepare()
 
     def _sync_spots(self, table):
         """UDP SpotTable -> display overlay (kHz wire -> Hz display)."""
@@ -879,7 +886,8 @@ class App:
         from pysdr_tpu_torch.runtime.profiler import torch_trace
         trace = (torch_trace(self.args.jax_trace) if self.args.jax_trace
                  else contextlib.nullcontext())
-        # the step's capture first, before any service thread or trace
+        # the step's and the display's captures first, before any service
+        # thread or trace
         self.ex.prepare()
         self.start_services()
         try:

@@ -8,7 +8,7 @@ Samples are interleaved complex64 by default (nchan channels interleaved
 sample-major), or "int16" / "int8" / "uint8" re,im pairs: full scale
 |x| = 1.0, int16/32768, int8/128, (uint8-127.5)/127.5, clipped. The
 port's recording taps write through DatWriter; DatReader replays a file
-and reads a tap back.
+and reads a tap back; write_dat and read_dat move a whole array.
 """
 
 from __future__ import annotations
@@ -157,3 +157,23 @@ class DatReader:
 
     def close(self):
         self._f.close()
+
+
+def write_dat(path: str, x, fs: float, fc: float = 0.0, tag: str = "raw_iq"):
+    """Write x, (n,) or (n, nchan) channel-last, to a new .dat file in
+    x's own dtype."""
+    x = np.asarray(x)
+    nchan = 1 if x.ndim == 1 else x.shape[1]
+    w = DatWriter(path, fs=fs, fc=fc, nchan=nchan, dtype=str(x.dtype),
+                  tag=tag)
+    w.save_data(x)
+    w.close()
+
+
+def read_dat(path: str):
+    """A whole .dat file: (samples as DatReader.read_data gives them,
+    its header)."""
+    r = DatReader(path)
+    x = r.read_data()
+    r.close()
+    return x, r.header

@@ -4,12 +4,16 @@ pysdr_tpu/models/display.py).
 The PSD, the rolling waterfall and the peak picking run on the bank's
 device (ops/spectrum); the waterfall stays there as a (rows, nfft)
 tensor, and only the uint8 image, the PSD row and the peak list cross to
-the host. The host pieces (Spot, SpotList, the colormap LUTs, render_rgb
-and the PNG writer) are copies of the reference's: its module imports jax.
+the host. On a card each pane's step is one CUDA graph a block length,
+replayed on the display's own stream (the JAX package's
+`jax.jit(self._step_impl)`, pysdr_tpu/models/display.py). The host
+pieces (Spot, SpotList, the colormap LUTs, render_rgb and the PNG
+writer) are copies of the reference's: its module imports jax.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import struct
 import zlib
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from pysdr_tpu_torch.device import resolve_device
+from pysdr_tpu_torch.models import graphstep
 from pysdr_tpu_torch.ops import spectrum
 
 
@@ -111,13 +116,86 @@ class DisplayConfig:
     window: str = "hann"
 
 
+# the peaks a frame carries at most (find_peaks' default, as the JAX step's)
+MAX_PEAKS = 32
+
+
+def _layout(n: int, nbins: int, rows: int, time_pts: int) -> tuple:
+    """The outputs of one update of an n-sample block, packed in one byte
+    vector (name, dtype, shape, byte offset): the 4-byte fields first, so
+    every offset is aligned, the uint8 image last."""
+    step = max(1, n // time_pts)
+    n_env = len(range(0, min(n, step * time_pts), step))
+    fields = (("psd", torch.float32, (nbins,)),
+              ("pval", torch.float32, (MAX_PEAKS,)),
+              ("bg", torch.float32, ()),
+              ("env", torch.float32, (n_env,)),
+              ("pidx", torch.int32, (MAX_PEAKS,)),
+              ("img", torch.uint8, (rows, nbins)))
+    out, off = [], 0
+    for name, dt, shape in fields:
+        out.append((name, dt, shape, off))
+        off += int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+    return tuple(out), off
+
+
+def _field(buf: torch.Tensor, dt, shape, off: int) -> torch.Tensor:
+    n = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+    return buf[off:off + n].view(dt).reshape(shape)
+
+
+@dataclasses.dataclass
+class _Block:
+    """The static buffers of one block length n: the input (the n complex
+    samples, then the dynamic range and the peak height, one float32
+    vector), the outputs packed in one byte vector, and their host twins
+    (pinned memory on a card; the buffers themselves on the CPU). On a
+    card the events of the last upload and the last pull, and with
+    graph=True the captured graph."""
+    inp: torch.Tensor
+    out: torch.Tensor
+    host_in: torch.Tensor
+    host_x: torch.Tensor           # the samples' view of host_in
+    host_out: torch.Tensor
+    outs: tuple                    # device views of `out`, by field
+    host: dict                     # numpy views of `host_out`, by name
+    in_done: object = None
+    out_done: object = None
+    captured: graphstep.Captured | None = None
+
+    @property
+    def x(self) -> torch.Tensor:
+        return self.inp[:-2].view(torch.complex64)
+
+
+_PANE_TENSORS = "the pane's waterfall or window"
+
+
 class ThreeBox:
     """One domain's (RF / BB / AF) display state machine.
 
     update(x_block) runs the PSD + waterfall step on the device and
-    returns a host DisplayFrame; retune(fc) realigns the waterfall."""
+    returns a host DisplayFrame; retune(fc) realigns the waterfall.
 
-    def __init__(self, cfg: DisplayConfig, tag: str = "", device="cuda"):
+    The step is a body over static buffers, one set per block length
+    (`prepare(n)`): the block and the two controls (`pan_dr_db`,
+    `peak_height_db`, copied in at each update as device scalars, so a
+    change shows in the next frame without a new capture) go up in one
+    copy; the waterfall is pushed in place; the newest row, the image,
+    the peaks, the background and the time pane come back in one copy.
+    On a card every copy, replay and pull is issued on the pane's own
+    stream (`stream`, the engine's), so an update waits on its own
+    pull alone, never on a bank step in flight; with graph=True (the
+    default) the body of each block length is captured once as a CUDA
+    graph (models/graphstep.capture) and replayed, with graph=False it
+    runs eagerly. On the CPU the body runs eagerly over the same
+    buffers. A failed capture or replay raises; a block of a length the
+    pane was not prepared for raises once one length was prepared (the
+    first update prepares its own length); rebinding the waterfall
+    raises at the next update: retune and clear write into it."""
+
+    def __init__(self, cfg: DisplayConfig, tag: str = "", device="cuda",
+                 graph: bool = True, stream=None):
         self.cfg = cfg
         self.tag = tag
         self.device = resolve_device(device)
@@ -130,6 +208,13 @@ class ThreeBox:
         self._wf = torch.full((cfg.rows, cfg.nfft), -200.0,
                               dtype=torch.float32, device=self.device)
         self._lo, self._hi = self._pan_slice()
+        on_card = self.device.type == "cuda"
+        self.graph = bool(graph) and on_card
+        self.stream = (stream if stream is not None
+                       else torch.cuda.Stream(self.device)) \
+            if on_card else None
+        self._blocks: dict[int, _Block] = {}
+        self._bound = self._tensors()
 
     def _pan_slice(self) -> tuple[int, int]:
         """Displayed bin range: Up keeps [fc, fc+fs/2), Down keeps
@@ -145,49 +230,158 @@ class ThreeBox:
     def freqs_hz(self) -> np.ndarray:
         return self.design.freqs_hz(self.fc_hz)[self._lo:self._hi]
 
+    @property
+    def graph_count(self) -> int:
+        """CUDA graphs captured so far: one per block length."""
+        return sum(b.captured is not None for b in self._blocks.values())
+
+    @property
+    def lengths(self) -> list[int]:
+        """The block lengths prepared so far."""
+        return sorted(self._blocks)
+
+    def _tensors(self) -> tuple:
+        return (self._wf, self._window)
+
+    def _on_stream(self):
+        return torch.cuda.stream(self.stream) if self.stream is not None \
+            else contextlib.nullcontext()
+
+    def _compute(self, x, wf, dr, height, in_place: bool) -> tuple:
+        """The step (the JAX package's _step_impl): the outputs in
+        _layout's order. in_place pushes the newest row into wf itself;
+        otherwise wf is left as it is."""
+        cfg = self.cfg
+        lo, hi = self._lo, self._hi
+        row = spectrum.periodogram(x, self._window, nfft=cfg.nfft,
+                                   hop=self.design.hop)
+        wf = (spectrum.waterfall_push_ if in_place
+              else spectrum.waterfall_push)(wf, row)
+        bg = spectrum.background_median(row)
+        img = spectrum.to_image_u8(spectrum.clamp_dynamic_range(
+            wf[:, lo:hi], dr), dr)
+        pidx, pval = spectrum.find_peaks(row[lo:hi], bg + height,
+                                         max_peaks=MAX_PEAKS,
+                                         min_dist=cfg.peak_dist_bins)
+        step = max(1, x.shape[0] // cfg.time_pts)
+        env = torch.abs(x[: step * cfg.time_pts:step])
+        return row[lo:hi], pval, bg, env, pidx, img
+
+    def _body(self, blk: _Block) -> None:
+        """One update over the static buffers: the waterfall pushed in
+        place, the outputs copied into the packed output vector."""
+        inp = blk.inp
+        for o, r in zip(blk.outs, self._compute(
+                blk.x, self._wf, inp[-2], inp[-1], in_place=True)):
+            o.copy_(r)
+
+    def prepare(self, n: int) -> None:
+        """Make the static buffers of n-sample blocks, and on a card with
+        graph=True capture the body over them (a no-op once done). Call
+        it before other threads work on the card: a capture fails while
+        another thread issues work there."""
+        n = int(n)
+        if n not in self._blocks:
+            self._blocks[n] = self._make(n)
+
+    def _make(self, n: int) -> _Block:
+        dev = self.device
+        on_card = dev.type == "cuda"
+        layout, nbytes = _layout(n, self._hi - self._lo, self.cfg.rows,
+                                 self.cfg.time_pts)
+        inp = torch.zeros(2 * n + 2, dtype=torch.float32, device=dev)
+        out = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+        host_in = torch.zeros(inp.shape, dtype=inp.dtype,
+                              pin_memory=True) if on_card else inp
+        host_out = torch.zeros(out.shape, dtype=out.dtype,
+                               pin_memory=True) if on_card else out
+        blk = _Block(
+            inp=inp, out=out,
+            host_in=host_in, host_x=host_in[:-2].view(torch.complex64),
+            host_out=host_out,
+            outs=tuple(_field(out, dt, shape, off)
+                       for _, dt, shape, off in layout),
+            host={name: _field(host_out, dt, shape, off).numpy()
+                  for name, dt, shape, off in layout})
+        if not on_card:
+            return blk
+        blk.in_done, blk.out_done = torch.cuda.Event(), torch.cuda.Event()
+        if self.graph:
+            def warm_up():
+                # the step once (its cuFFT plan), the waterfall unwritten
+                self._compute(blk.x, self._wf, inp[-2], inp[-1],
+                              in_place=False)
+                return ()
+            blk.captured, _ = graphstep.capture(
+                dev, warm_up, lambda _outs: self._body(blk), self._tensors,
+                self.stream, _PANE_TENSORS)
+        return blk
+
     def update(self, x_block) -> DisplayFrame:
         """x_block: host complex (n,) or real (n,) samples."""
         cfg = self.cfg
-        x = torch.from_numpy(np.ascontiguousarray(x_block, np.complex64)) \
-            .to(self.device)
-        row = spectrum.periodogram(x, self._window, nfft=cfg.nfft,
-                                   hop=self.design.hop)
-        self._wf = spectrum.waterfall_push(self._wf, row)
-        bg = spectrum.background_median(row)
-        dr = float(np.float32(cfg.pan_dr_db))
-        img = spectrum.to_image_u8(spectrum.clamp_dynamic_range(
-            self._wf[:, self._lo:self._hi], dr), dr)
-        pidx, pval = spectrum.find_peaks(
-            row[self._lo:self._hi], bg + float(np.float32(cfg.peak_height_db)),
-            min_dist=cfg.peak_dist_bins)
-        step = max(1, x.shape[0] // cfg.time_pts)
-        env = torch.abs(x[: step * cfg.time_pts:step])
-        pidx = pidx.cpu().numpy()
-        pval = pval.cpu().numpy()
+        graphstep.check_bound(self._tensors(), self._bound, _PANE_TENSORS)
+        x = np.asarray(x_block)
+        n = x.shape[0]
+        if n not in self._blocks:
+            if self._blocks:
+                raise ValueError(
+                    f"display pane {self.tag or '?'}: a block of {n} "
+                    f"samples, but the pane was prepared for {self.lengths}")
+            self.prepare(n)
+        blk = self._blocks[n]
+        if blk.in_done is not None:
+            # the last upload out of the pinned input has finished
+            blk.in_done.synchronize()
+        # torch's copy: threaded, and without the interpreter lock (a
+        # 4 M-sample RF block is 32.8 MB)
+        blk.host_x.copy_(torch.from_numpy(x if x.flags.writeable
+                                          else x.copy()))
+        blk.host_in[-2:] = torch.tensor(
+            [cfg.pan_dr_db, cfg.peak_height_db], dtype=torch.float32)
+        if self.stream is None:
+            self._body(blk)
+        else:
+            with torch.cuda.stream(self.stream):
+                blk.inp.copy_(blk.host_in, non_blocking=True)
+                blk.in_done.record()
+                if blk.captured is not None:
+                    blk.captured.replay()
+                else:
+                    self._body(blk)
+                blk.host_out.copy_(blk.out, non_blocking=True)
+                blk.out_done.record()
+            blk.out_done.synchronize()
+        h = blk.host
+        pidx = h["pidx"].copy()
+        pval = h["pval"].copy()
         ok = pidx >= 0
         if not cfg.use_peaks:
             ok[:] = False
         freqs = self.freqs_hz
         return DisplayFrame(
-            time_y=env.cpu().numpy(),
+            time_y=h["env"].copy(),
             freqs_hz=freqs,
-            psd_db=row[self._lo:self._hi].cpu().numpy(),
-            waterfall_u8=img.cpu().numpy(),
+            psd_db=h["psd"].copy(),
+            waterfall_u8=h["img"].copy(),
             peak_freqs_hz=freqs[pidx[ok]],
             peak_vals_db=pval[ok],
-            background_db=float(bg),
+            background_db=float(h["bg"]),
         )
 
     def retune(self, new_fc_hz: float):
-        """Keep the waterfall history aligned with a new center."""
+        """Keep the waterfall history aligned with a new center (written
+        into the waterfall, on the pane's stream)."""
         df = self.design.fs / self.cfg.nfft
         bins = int(round((new_fc_hz - self.fc_hz) / df))
         if bins:
-            self._wf = spectrum.waterfall_shift(self._wf, -bins)
+            with self._on_stream():
+                spectrum.waterfall_shift_(self._wf, -bins)
         self.fc_hz = new_fc_hz
 
     def clear(self):
-        self._wf = torch.full_like(self._wf, -200.0)
+        with self._on_stream():
+            self._wf.fill_(-200.0)
 
 
 # --------------------------------------------------------------------------
@@ -262,15 +456,20 @@ def write_png(path: str, rgb: np.ndarray):
 class DisplayEngine:
     """Owns one ThreeBox per domain (RF + per-channel AF/BB) on the bank's
     device, consumes blocks from the executive's PSD tap, and rate-limits
-    updates to every `decimate`-th block."""
+    updates to every `decimate`-th block. On a card its panes share one
+    CUDA stream of their own (`stream`), and `prepare` captures each
+    pane's graph (graph=False: the panes run eagerly)."""
 
     def __init__(self, bank, rf_cfg: DisplayConfig | None = None,
                  af_cfg: DisplayConfig | None = None, decimate: int = 1,
-                 show_baseband: bool = False, max_af: int = 8):
+                 show_baseband: bool = False, max_af: int = 8,
+                 graph: bool = True):
         d = bank.design
-        dev = bank.device
+        dev = resolve_device(bank.device)
         self.bank = bank
         self.decimate = max(1, decimate)
+        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" \
+            else None
         rxs = getattr(bank.cfg, "receivers", None)
         if rxs:
             # the RF pane shows the DEVICE passband: its center is the
@@ -281,19 +480,40 @@ class DisplayEngine:
         rf_cfg = rf_cfg or DisplayConfig(fs=d.fs_in, fc_hz=fc0)
         af_cfg = af_cfg or DisplayConfig(fs=d.fs_out, nfft=512,
                                          pan_dir="up")
-        self.rf = ThreeBox(rf_cfg, tag="RF", device=dev)
+
+        def box(cfg, tag):
+            return ThreeBox(cfg, tag=tag, device=dev, graph=graph,
+                            stream=self.stream)
+        self.rf = box(rf_cfg, "RF")
         # a 64-channel channelizer does not need 64 panes
         n_af = min(bank.n_rx, max_af)
-        self.af = [ThreeBox(dataclasses.replace(af_cfg), tag=f"AF{i}",
-                            device=dev)
+        self.af = [box(dataclasses.replace(af_cfg), f"AF{i}")
                    for i in range(n_af)]
-        self.bb = [ThreeBox(DisplayConfig(fs=d.fs_out,
-                                          fc_hz=rxs[i].fc_hz if rxs
-                                          else fc0),
-                            tag=f"BB{i}", device=dev)
+        self.bb = [box(DisplayConfig(fs=d.fs_out,
+                                     fc_hz=rxs[i].fc_hz if rxs else fc0),
+                       f"BB{i}")
                    for i in range(n_af)] if show_baseband else []
         self.frames: dict[str, DisplayFrame] = {}
         self._n = 0
+
+    @property
+    def panes(self) -> list[ThreeBox]:
+        return [self.rf, *self.af, *self.bb]
+
+    @property
+    def graph_count(self) -> int:
+        """CUDA graphs captured over the panes: one per (pane, length)."""
+        return sum(b.graph_count for b in self.panes)
+
+    def prepare(self) -> None:
+        """Prepare the RF pane for the bank's in_block and the AF and BB
+        panes for its out_block (on a card: capture their graphs). A
+        no-op once done; the App runs it from Executive.prepare, before
+        the prefetch thread and the services start."""
+        d = self.bank.design
+        self.rf.prepare(d.in_block)
+        for b in (*self.af, *self.bb):
+            b.prepare(d.out_block)
 
     def _keeps(self, n: int) -> bool:
         """Whether the n-th block (1-based) updates the AF/BB panes: the
@@ -308,8 +528,7 @@ class DisplayEngine:
         if not self._keeps(self._n):
             return
         for i, box in enumerate(self.af):
-            self.frames[box.tag] = box.update(
-                np.ascontiguousarray(audio[i]))
+            self.frames[box.tag] = box.update(audio[i])
 
     def wants_next_bb(self) -> bool:
         """True when the next __call__/update_bb pair will consume a
@@ -322,8 +541,7 @@ class DisplayEngine:
         if not self.bb or not self._keeps(self._n):
             return
         for i, box in enumerate(self.bb):
-            self.frames[box.tag] = box.update(
-                np.ascontiguousarray(bb[i]))
+            self.frames[box.tag] = box.update(bb[i])
 
     def update_rf(self, x_block) -> DisplayFrame:
         fr = self.rf.update(x_block)

@@ -283,6 +283,13 @@ class ReceiverBank(BankIO, torch.nn.Module):
             torch.view_as_real(audio).reshape(-1), self.audio_wire)
         return new_state, (out, bb if self.emit_baseband else None)
 
+    def step_functional(self, state: BankState, x_wire: torch.Tensor,
+                        params: ChannelParams):
+        """The pure step: (new state, (audio wire, bb or None)) from the
+        given state and params, the bank's own left as they are. Eager on
+        every device (step_device replays the captured graph)."""
+        return self._step_impl(state, x_wire, params)
+
     def step_device(self, x_wire: torch.Tensor) -> torch.Tensor:
         """Device step: returns the flattened audio wire block on the
         device (no host transfer). The block is copied into the step's

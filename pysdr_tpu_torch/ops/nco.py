@@ -24,6 +24,14 @@ def snap_freq(freq_hz: float, fs: float) -> int:
     return int(round(freq_hz / fs * DENOM)) % DENOM
 
 
+def snapped_freq_hz(k, fs: float):
+    """Inverse of snap_freq: the realizable frequency in Hz of k (a
+    python int or an array of them; k above DENOM/2 is negative)."""
+    k = np.asarray(k)
+    ks = np.where(k > DENOM // 2, k - DENOM, k)
+    return ks / DENOM * fs
+
+
 def _i64(v, device=None) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.int64, device=device)
 
@@ -52,6 +60,13 @@ def phasor_table(k, p0, n: int, sign: float = -1.0) -> torch.Tensor:
     th = phase_indices(k, p0, n).to(torch.float32) \
         * np.float32(_TWO_PI / DENOM)
     return torch.complex(torch.cos(th), np.float32(sign) * torch.sin(th))
+
+
+def lo_angles(k, p0, n: int) -> torch.Tensor:
+    """A block of LO phase angles in radians, float32 (..., n): the exact
+    phase indices (< 2^22, so exact in float32) times 2π/DENOM."""
+    return phase_indices(k, p0, n).to(torch.float32) \
+        * np.float32(_TWO_PI / DENOM)
 
 
 def _pick_factor(n: int) -> int:

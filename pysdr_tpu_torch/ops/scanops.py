@@ -106,6 +106,29 @@ def one_pole(x: torch.Tensor, alpha, y_prev):
     return linrec(float(np.float32(1.0) - alpha), x * float(alpha), y_prev)
 
 
+def dc_block(x: torch.Tensor, r: float, state):
+    """DC blocker y[n] = x[n] - x[n-1] + r*y[n-1] over a float32 block
+    (n,); state = (x_prev, y_prev), 0-d tensors or python floats. The
+    recurrence is linrec's, so a card tensor takes the kernel. Returns
+    (y, (x[-1], y_last))."""
+    x_prev, y_prev = state
+    xm1 = torch.cat([torch.as_tensor(x_prev, dtype=x.dtype,
+                                     device=x.device).reshape(1), x[:-1]])
+    y, y_last = linrec(float(np.float32(r)), x - xm1, y_prev)
+    return y, (x[-1], y_last)
+
+
+def one_pole_cas(x: torch.Tensor, alpha, y_prev, n_stages: int = 1):
+    """Cascade of n_stages identical one-pole sections (sharper
+    smoothing): y_prev holds each stage's last output (n_stages, ...).
+    Returns (y, the stages' new last outputs stacked)."""
+    ys, lasts = x, []
+    for i in range(n_stages):
+        ys, last = one_pole(ys, alpha, y_prev[i])
+        lasts.append(last)
+    return ys, torch.stack(lasts)
+
+
 def sr_latch(set_: torch.Tensor, reset: torch.Tensor, g_prev):
     """Set/reset hysteresis latch (set wins when both fire).
     set_, reset: bool (n,) or (B, n); g_prev float32 () or (B,).

@@ -5,7 +5,10 @@ Welch periodogram with windowing and 50% overlap, the waterfall as a
 rolling (rows, nfft) tensor, median background, peak picking, dynamic-
 range clamp and uint8 quantization. Plain torch (`torch.fft`, a stable
 sort for the top-k); only the final uint8 image and float rows cross to
-the host.
+the host. `waterfall_push_` and `waterfall_shift_` write into the
+waterfall they are given, so it keeps its address: the display's CUDA
+graph reads and writes that tensor at every replay
+(models/display.ThreeBox). The functional forms stay for comparisons.
 """
 
 from __future__ import annotations
@@ -61,9 +64,19 @@ def waterfall_push(wf: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return torch.cat([row[None, :], wf[:-1]], dim=0)
 
 
+def waterfall_push_(wf: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """waterfall_push written into wf itself. Returns wf."""
+    return wf.copy_(waterfall_push(wf, row))
+
+
 def waterfall_shift(wf: torch.Tensor, bins: int) -> torch.Tensor:
     """Frequency-shift realignment on retune (bins > 0 shifts right)."""
     return torch.roll(wf, int(bins), dims=1)
+
+
+def waterfall_shift_(wf: torch.Tensor, bins: int) -> torch.Tensor:
+    """waterfall_shift written into wf itself. Returns wf."""
+    return wf.copy_(waterfall_shift(wf, bins))
 
 
 def background_median(psd_row: torch.Tensor) -> torch.Tensor:

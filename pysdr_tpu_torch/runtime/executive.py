@@ -124,10 +124,16 @@ class Executive:
         self.raw_writer = raw_writer
         self.demod_writer = demod_writer
         self.psd_callback = psd_callback
+        # callables prepare() runs after the bank's capture (the App's
+        # display captures its panes there)
+        self.prepare_hooks: list[Callable] = []
         self.profiler = BlockProfiler(d.in_block, d.fs_in)
         self._cmd_q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._pf_active = threading.Event()
+        # held by the prefetch thread while it issues a block to the card,
+        # and by stop(): after stop() the thread issues nothing more
+        self._issue_lock = threading.Lock()
         self.n_blocks = 0
         self.last_rf_block: np.ndarray | None = None
         # the drained block's baseband: a device tensor (n_rx, out_block)
@@ -212,7 +218,10 @@ class Executive:
             try:
                 pair = self._read_host_raw()
                 self.stage_ms["read"] += (time.perf_counter() - t0) * 1e3
-                item = self._prepare(pair)
+                with self._issue_lock:
+                    if self._stop.is_set():
+                        return       # a read that outlasted stop()
+                    item = self._prepare(pair)
             except BaseException as e:  # noqa: BLE001 — surfaced by
                 # _read_block on the executive thread
                 self._pf_error = e
@@ -262,12 +271,14 @@ class Executive:
     # ---- the hot loop ----
 
     def prepare(self):
-        """Capture the bank's step for this executive's wire blocks (a
-        no-op once done): run() calls it before it starts the prefetch
-        thread, and a caller may call it earlier, before other threads
-        (a trace, services) start."""
+        """Capture the bank's step for this executive's wire blocks, then
+        run prepare_hooks (each a no-op once done): run() calls it before
+        it starts the prefetch thread, and a caller may call it earlier,
+        before other threads (a trace, services) start."""
         self.bank.prepare(WIRE_TORCH_DTYPES[self.wire],
                           self.bank.design.in_block)
+        for hook in self.prepare_hooks:
+            hook()
 
     def run(self, n_blocks: int | None = None,
             duration_s: float | None = None):
@@ -341,10 +352,17 @@ class Executive:
             self._pf_active.clear()
 
     def stop(self):
-        """End the run, and wait (2 s at most) for the prefetch thread to
-        leave: a process that exits while that thread is inside a device
-        copy aborts in the interpreter's shutdown."""
+        """End the run. Once it returns the prefetch thread issues nothing
+        more to the card: a block it was issuing has been issued, and a
+        read still in progress (a slow source's) ends without an issue.
+        So another bank's capture may start at once (any other thread's
+        device call fails one), and a process that exits finds no thread
+        of the executive inside a device copy (it would abort in the
+        interpreter's shutdown). Then wait (2 s at most) for the thread
+        to leave."""
         self._stop.set()
+        with self._issue_lock:
+            pass
         t = self._pf_thread
         if t is not None and t is not threading.current_thread():
             t.join(timeout=2.0)

@@ -4,10 +4,9 @@ Equivalent of the reference `Profiler` (duty-cycled cProfile printed
 against the nominal frame time, reference profiler.py:27-46): samples/s
 and realtime factor per block.
 
-The port's own copy of BlockProfiler from pysdr_tpu/runtime/profiler.py.
-Its `jax_trace` becomes `torch_trace`, a torch.profiler trace of the run
-(`--jax-trace DIR`); `Stopwatch`, which the port does not use, is left
-out.
+The port's own copies of BlockProfiler and Stopwatch from
+pysdr_tpu/runtime/profiler.py. Its `jax_trace` becomes `torch_trace`, a
+torch.profiler trace of the run (`--jax-trace DIR`).
 
 `timed_steps` and `profile_steps` time a bank's device step on the card
 (CUDA events; torch.profiler's kernel time against the host's wall
@@ -91,6 +90,25 @@ def torch_trace(log_dir: str):
         yield prof
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}.json"))
+
+
+class Stopwatch:
+    """Profiler2 equivalent: start/stop with accumulated wall time."""
+
+    def __init__(self, tag: str = ""):
+        self.tag = tag
+        self.total_s = 0.0
+        self.count = 0
+        self._t0 = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        dt = time.perf_counter() - self._t0
+        self.total_s += dt
+        self.count += 1
+        return dt
 
 
 def timed_steps(bank, xbs):

@@ -111,3 +111,31 @@ def test_timestamped_name_matches_the_reference():
     t = 1.7e9
     assert datfile.timestamped_name("raw_iq", t) == \
         jdat.timestamped_name("raw_iq", t)
+
+
+@pytest.mark.parametrize("dtype", ("complex64", "int16"))
+@pytest.mark.parametrize("nchan", (1, 3))
+def test_write_dat_round_trip_through_both_readers(tmp_path, dtype, nchan):
+    """write_dat in x's own dtype, read back whole by the port's read_dat
+    and DatReader and by the JAX reader: the same header and samples."""
+    x = samples(9, 500, nchan)
+    if dtype == "int16":
+        x = np.round(np.stack([x.real, x.imag], -1) * 32767).astype(
+            np.int16).reshape(x.shape[0], -1)
+    paths = {}
+    for mod, name in ((datfile, "port.dat"), (jdat, "jax.dat")):
+        paths[name] = str(tmp_path / name)
+        mod.write_dat(paths[name], x, fs=96e3, fc=7.1e6, tag="baseband")
+    for name, path in paths.items():
+        got, hdr = datfile.read_dat(path)
+        ref, jhdr = jdat.read_dat(path)
+        np.testing.assert_array_equal(got, ref)
+        assert (hdr.fs, hdr.fc, hdr.nchan, hdr.dtype, hdr.tag) == \
+            (jhdr.fs, jhdr.fc, jhdr.nchan, jhdr.dtype, jhdr.tag) == \
+            (96e3, 7.1e6, x.shape[1] if x.ndim == 2 else 1, dtype,
+             "baseband"), name
+        r = datfile.DatReader(path)
+        np.testing.assert_array_equal(r.read_data(), got)
+        r.close()
+    body = [open(p, "rb").read() for p in paths.values()]
+    assert body[0][-x.nbytes:] == body[1][-x.nbytes:]

@@ -1,7 +1,13 @@
 """Parity of the port's spectrum ops and ThreeBox against pysdr_tpu's
 (JAX on the CPU): psd_db within 1e-3 dB on bins above -150 dB, the
 waterfall image within 1 LSB, the same peak indices; plus the display
-engine's decimation phase and a PNG round trip."""
+engine's decimation phase and a PNG round trip. ThreeBox runs its step
+as a body over static buffers (on a card, captured as a CUDA graph):
+here it is held against the JAX ThreeBox across a retune, a clear and
+a dynamic-range change, against the functional forms of ops/spectrum
+inside an App run, and made to raise on a rebound waterfall or a block
+length it was not prepared for. tests/test_torch_kernels.py holds the
+graphed display against its eager twin on a card."""
 
 import struct
 import zlib
@@ -109,6 +115,134 @@ def test_threebox_update_matches_jax(pan_dir):
                                    rtol=1e-6)
     tb.clear()
     assert tb._wf.max().item() == -200.0
+
+
+def test_threebox_static_body_matches_jax_across_controls():
+    """Nine updates of the static-buffer body against the JAX ThreeBox,
+    with a retune, a dynamic-range change, a clear and a peak-height
+    change between them, at test_threebox_update_matches_jax's
+    tolerances; the waterfall keeps its address throughout."""
+    fs = 1.024e6
+    cfg = dict(fs=fs, fc_hz=7.0e6, nfft=256, rows=12)
+    tb = display.ThreeBox(display.DisplayConfig(**cfg), tag="RF",
+                          device="cpu")
+    jb = jdisp.ThreeBox(jdisp.DisplayConfig(**cfg), tag="RF")
+    wf = tb._wf
+    tb.prepare(4096)
+    for k in range(9):
+        if k == 2:
+            tb.retune(7.0e6 - 24e3)
+            jb.retune(7.0e6 - 24e3)
+        if k == 4:
+            tb.cfg.pan_dr_db = jb.cfg.pan_dr_db = 35.0
+        if k == 6:
+            tb.clear()
+            jb.clear()
+        if k == 7:
+            tb.cfg.peak_height_db = jb.cfg.peak_height_db = 20.0
+        x = tones(4096, fs, [(100e3 + 8e3 * k, 1.0), (-300e3, 0.05)],
+                  seed=10 + k)
+        ft, fj = tb.update(x), jb.update(x)
+        assert_psd_close(ft.psd_db, np.asarray(fj.psd_db))
+        assert np.abs(ft.waterfall_u8.astype(int)
+                      - np.asarray(fj.waterfall_u8).astype(int)).max() <= 1
+        np.testing.assert_array_equal(ft.freqs_hz, fj.freqs_hz)
+        np.testing.assert_array_equal(ft.peak_freqs_hz, fj.peak_freqs_hz)
+        assert abs(ft.background_db - fj.background_db) <= 1e-3
+        np.testing.assert_allclose(ft.time_y, np.asarray(fj.time_y),
+                                   rtol=1e-6)
+        if k == 6:
+            # after the clear one row is live, the rest at the floor
+            assert (ft.waterfall_u8[1:] == 0).all()
+    assert tb._wf is wf and tb.lengths == [4096] and tb.graph_count == 0
+
+
+def test_rebinding_the_waterfall_raises_at_the_next_update():
+    tb = display.ThreeBox(display.DisplayConfig(fs=48e3, nfft=64, rows=4),
+                          device="cpu")
+    x = tones(1024, 48e3, [(1e3, 1.0)])
+    tb.update(x)
+    tb._wf = torch.full_like(tb._wf, -200.0)
+    with pytest.raises(RuntimeError, match="rebound"):
+        tb.update(x)
+
+
+def test_a_length_not_prepared_raises():
+    tb = display.ThreeBox(display.DisplayConfig(fs=48e3, nfft=64, rows=4),
+                          device="cpu")
+    tb.prepare(1024)
+    tb.update(tones(1024, 48e3, [(1e3, 1.0)]))
+    with pytest.raises(ValueError, match="prepared for \\[1024\\]"):
+        tb.update(tones(2048, 48e3, [(1e3, 1.0)]))
+    assert tb.lengths == [1024]
+
+
+def functional_frames(cfg, xs):
+    """The frames of a pane fed xs, by ops/spectrum's functional forms
+    over a waterfall rebound at each update (the port's update before
+    its step ran over static buffers)."""
+    design = spectrum.SpectrumDesign(fs=cfg.fs, nfft=cfg.nfft,
+                                     window=cfg.window)
+    window = torch.from_numpy(design.window_array())
+    lo, hi = {"up": (cfg.nfft // 2, cfg.nfft),
+              "down": (0, cfg.nfft // 2 + 1)}.get(cfg.pan_dir,
+                                                  (0, cfg.nfft))
+    wf = torch.full((cfg.rows, cfg.nfft), -200.0)
+    dr = float(np.float32(cfg.pan_dr_db))
+    out = []
+    for x in xs:
+        x = torch.from_numpy(np.ascontiguousarray(x, np.complex64))
+        row = spectrum.periodogram(x, window, nfft=cfg.nfft, hop=design.hop)
+        wf = spectrum.waterfall_push(wf, row)
+        bg = spectrum.background_median(row)
+        img = spectrum.to_image_u8(spectrum.clamp_dynamic_range(
+            wf[:, lo:hi], dr), dr)
+        pidx, pval = spectrum.find_peaks(
+            row[lo:hi], bg + float(np.float32(cfg.peak_height_db)),
+            min_dist=cfg.peak_dist_bins)
+        step = max(1, x.shape[0] // cfg.time_pts)
+        out.append((row[lo:hi].numpy(), img.numpy(), pidx.numpy(),
+                    pval.numpy(), float(bg),
+                    torch.abs(x[: step * cfg.time_pts:step]).numpy()))
+    return out
+
+
+def test_app_display_frames_equal_the_functional_forms():
+    """An in-process App run with --psd --psd-every 1 --bb: the display
+    prepared with the bank (RF at in_block, AF and BB at out_block), and
+    every frame of every pane equal, bit for bit, to the functional
+    forms fed the same blocks."""
+    from pysdr_tpu_torch import app as app_mod
+    a = app_mod.App(app_mod.build_parser().parse_args(
+        ["--device", "cpu", "--fs", "0.512", "--block", "2048",
+         "--fc", "0.6", "0.62", "--psd", "--psd-every", "1", "--bb",
+         "--blocks", "5"]))
+    d, disp = a.bank.design, a.display
+    seen = {}
+    for box in disp.panes:
+        def rec(x, box=box, update=box.update):
+            fr = update(x)
+            seen.setdefault(box.tag, []).append((np.array(x), fr))
+            return fr
+        box.update = rec
+    assert a.run() == 0
+    assert disp.rf.lengths == [d.in_block]
+    assert all(b.lengths == [d.out_block] for b in (*disp.af, *disp.bb))
+    assert sorted(seen) == ["AF0", "AF1", "BB0", "BB1", "RF"]
+    for box in disp.panes:
+        got = seen[box.tag]
+        assert len(got) == 5, box.tag
+        ref = functional_frames(box.cfg, [x for x, _ in got])
+        for (_, fr), (psd, img, pidx, pval, bg, env) in zip(got, ref):
+            np.testing.assert_array_equal(fr.psd_db, psd)
+            np.testing.assert_array_equal(fr.waterfall_u8, img)
+            ok = pidx >= 0
+            np.testing.assert_array_equal(fr.peak_freqs_hz,
+                                          box.freqs_hz[pidx[ok]])
+            np.testing.assert_array_equal(fr.peak_vals_db, pval[ok])
+            assert fr.background_db == bg
+            np.testing.assert_array_equal(fr.time_y, env)
+    assert disp.frames["RF"] is seen["RF"][-1][1]
 
 
 def test_engine_updates_af_panes_on_the_rf_phase():

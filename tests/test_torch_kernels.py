@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (pysdr_tpu_torch/csrc/scan.cu, pfb.cu,
 rtty.cu) against their plain torch twins, and the twins against a serial
-loop.
+loop; on a card also the CUDA graphs of the banks' steps, the --mesh
+shards and the display's panes against their eager twins.
 
 Imports no jax, so it also runs on a card host without the JAX package:
 
@@ -749,6 +750,48 @@ def test_drain_waits_for_its_block_alone(cuda):
 
 
 @pytest.mark.cuda
+def test_a_read_that_outlasts_stop_leaves_a_capture_alone(cuda):
+    """A prefetch read still in progress when the executive's stop()
+    returns (a source slower than stop's wait, as the synth is at chan64)
+    ends inside another graph's capture without a device call: the
+    capture, under capture_error_mode "global", succeeds."""
+    import threading
+    from pysdr_tpu_torch.models import graphstep
+    from pysdr_tpu_torch.runtime.executive import Executive
+    _, bank = _small_bank(cuda)
+    xs = _noise_blocks(bank.design.in_block, 5, 33)
+    gate, waiting = threading.Event(), threading.Event()
+
+    class GatedSource:
+        k = 0
+
+        def read_data(self, n, loop=True):
+            if self.k == 4:
+                waiting.set()
+                gate.wait()
+            self.k += 1
+            return xs[self.k - 1]
+
+    ex = Executive(bank, GatedSource())
+    ex.run(n_blocks=3)
+    assert waiting.wait(timeout=30.0)          # the 5th read has begun
+    ex.stop()
+    y = torch.zeros(8, device=cuda)
+
+    def body(_outs):
+        gate.set()                             # the read ends in here
+        ex._pf_thread.join(timeout=30.0)
+        y.add_(1.0)
+
+    cap, _ = graphstep.capture(cuda, lambda: (), body, lambda: (y,),
+                               what="y")
+    assert not ex._pf_thread.is_alive() and ex._pf_error is None
+    cap.replay()
+    torch.cuda.synchronize()
+    assert float(y[0]) == 1.0
+
+
+@pytest.mark.cuda
 def test_stream_shards_on_one_card_match_the_serial_bank(cuda):
     """A 2 x 2 grid of one card, each shard a CUDA graph replayed in
     turn from this thread: every shard runs the scan kernels (three
@@ -1069,3 +1112,162 @@ def test_mesh_executive_depth_2_drains_as_depth_1(cuda):
         assert ad.graph_count == 4 and len(out) == len(xs)
     for k, (a, b) in enumerate(zip(got[1], got[2])):
         np.testing.assert_array_equal(a, b, err_msg=str(k))
+
+
+# ---- the display's panes, one CUDA graph a (pane, block length) ----
+
+def _display_pair(cuda):
+    """A bank (_small_bank) and two display engines on it with RF, AF
+    and BB panes: graphed (prepared) and eager (graph=False)."""
+    from pysdr_tpu_torch.models.display import DisplayEngine
+    _, bank = _small_bank(cuda)
+    g = DisplayEngine(bank, show_baseband=True)
+    e = DisplayEngine(bank, show_baseband=True, graph=False)
+    for eng in (g, e):
+        eng.prepare()
+    return bank, g, e
+
+
+def _frames_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _pane_controls(box, k):
+    """The controls between updates: a retune, a dynamic-range change,
+    a clear and a peak-height change."""
+    if k == 11:
+        box.retune(box.fc_hz + 40 * box.design.fs / box.cfg.nfft)
+    elif k == 23:
+        box.cfg.pan_dr_db = 30.0
+    elif k == 37:
+        box.clear()
+    elif k == 45:
+        box.cfg.peak_height_db = 15.0
+
+
+@pytest.mark.cuda
+def test_graphed_display_equals_eager(cuda):
+    """64 updates of each pane kind (RF at in_block, AF and BB at
+    out_block) through the graphed engine and its eager twin, fed the
+    same host blocks with the same controls between them: every frame
+    bit-equal; one graph a (pane, block length), none eager."""
+    bank, g, e = _display_pair(cuda)
+    d = bank.design
+    blocks = {"RF": _noise_blocks(d.in_block, 8, 61),
+              "AF0": _noise_blocks(d.out_block, 8, 62),
+              "BB0": _noise_blocks(d.out_block, 8, 63)}
+    for tag, xs in blocks.items():
+        bg = next(b for b in g.panes if b.tag == tag)
+        be = next(b for b in e.panes if b.tag == tag)
+        for k in range(64):
+            for box in (bg, be):
+                _pane_controls(box, k)
+            fg, fe = bg.update(xs[k % 8]), be.update(xs[k % 8])
+            assert _frames_equal(fg, fe), (tag, k)
+            assert np.isfinite(fg.psd_db).all()
+    assert g.graph_count == len(g.panes) == 1 + 2 * bank.n_rx
+    assert all(b.graph_count == 1 for b in g.panes)
+    assert e.graph_count == 0
+
+
+@pytest.mark.cuda
+def test_display_dr_change_shows_in_the_next_frame(cuda):
+    """The dynamic range is a device scalar copied in at each update:
+    changed between two updates it reaches the graph's next frame (the
+    image differs from a twin left at 60 dB and equals the eager
+    pane's), with no new capture."""
+    import dataclasses
+    from pysdr_tpu_torch.models.display import ThreeBox
+    bank, g, e = _display_pair(cuda)
+    keep = ThreeBox(dataclasses.replace(g.rf.cfg), device=cuda)
+    keep.prepare(bank.design.in_block)
+    xs = _noise_blocks(bank.design.in_block, 4, 64)
+    for x in xs[:3]:
+        for box in (g.rf, e.rf, keep):
+            box.update(x)
+    g.rf.cfg.pan_dr_db = e.rf.cfg.pan_dr_db = 20.0
+    fg, fe, fk = (box.update(xs[3]) for box in (g.rf, e.rf, keep))
+    assert _frames_equal(fg, fe)
+    assert not np.array_equal(fg.waterfall_u8, fk.waterfall_u8)
+    assert g.rf.graph_count == 1
+
+
+@pytest.mark.cuda
+def test_display_pulls_do_not_wait_on_a_bank_step(cuda):
+    """With the card's default stream held busy behind a bank step
+    (torch.cuda._sleep), a graphed update of every pane kind, on the
+    display's own stream, returns long before the sleep ends, with the
+    frame of an update made while the card was idle."""
+    import time
+    bank, g, e = _display_pair(cuda)
+    d = bank.design
+    xs = {"RF": _noise_blocks(d.in_block, 1, 65)[0],
+          "AF0": _noise_blocks(d.out_block, 1, 66)[0],
+          "BB0": _noise_blocks(d.out_block, 1, 67)[0]}
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    b.synchronize()
+    cycles_a_ms = 10 ** 7 / a.elapsed_time(b)
+    xb = bank.to_device_block(_noise_blocks(d.in_block, 1, 68)[0])
+    bank.step_device(xb)
+    torch.cuda._sleep(int(cycles_a_ms * 1500))                 # ~1.5 s busy
+    t0 = time.perf_counter()
+    got = {tag: next(p for p in g.panes if p.tag == tag).update(x)
+           for tag, x in xs.items()}
+    waited = time.perf_counter() - t0
+    assert waited < 0.5, waited
+    torch.cuda.synchronize()
+    for tag, x in xs.items():
+        ref = next(p for p in e.panes if p.tag == tag).update(x)
+        assert _frames_equal(got[tag], ref), tag
+
+
+@pytest.mark.cuda
+def test_display_raises_on_a_rebound_waterfall_or_length(cuda):
+    """On a card a graphed pane raises, and never runs eagerly, when its
+    waterfall was rebound after the capture or when it is fed a block
+    length it was not prepared for."""
+    from pysdr_tpu_torch.models.display import DisplayConfig, ThreeBox
+    tb = ThreeBox(DisplayConfig(fs=48e3, nfft=256, rows=8), device=cuda)
+    tb.prepare(4096)
+    x = _noise_blocks(4096, 1, 69)[0]
+    tb.update(x)
+    with pytest.raises(ValueError, match="prepared for"):
+        tb.update(x[:2048])
+    tb._wf = tb._wf.clone()
+    with pytest.raises(RuntimeError, match="rebound"):
+        tb.update(x)
+    assert tb.graph_count == 1
+
+
+@pytest.mark.cuda
+def test_display_capture_with_a_host_sync_raises(cuda):
+    """A pane whose step waits on the card inside the capture (a .item())
+    fails its capture loudly: prepare raises, in a child process so the
+    failed capture leaves this one's card state alone."""
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from pysdr_tpu_torch.models.display import DisplayConfig, "
+        "ThreeBox\n"
+        "tb = ThreeBox(DisplayConfig(fs=48e3, nfft=256, rows=8))\n"
+        "compute = tb._compute\n"
+        "def synced(x, wf, dr, height, in_place):\n"
+        "    out = compute(x, wf, dr, height, in_place)\n"
+        "    out[2].item()\n"
+        "    return out\n"
+        "tb._compute = synced\n"
+        "try:\n"
+        "    tb.prepare(4096)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', tb.graph_count, type(e).__name__)\n"
+        "else:\n"
+        "    print('captured', tb.graph_count)\n")
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=root)
+    assert p.stdout.strip().startswith("raised 0"), (p.stdout, p.stderr)

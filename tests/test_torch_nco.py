@@ -99,3 +99,25 @@ def test_audio_wire_within_one_code(wire, tol):
     np.testing.assert_array_equal(cplx.dequantize_audio_host(ref),
                                   jcplx.dequantize_audio_host(ref))
     np.testing.assert_array_equal(cplx._MULAW_LUT, jcplx._MULAW_LUT)
+
+
+def test_snapped_freq_and_lo_angles_match_jax():
+    """snapped_freq_hz inverts snap_freq as the JAX one does (scalars and
+    arrays, both signs); lo_angles' phase indices are bit-identical and
+    its float32 angles equal the JAX ones."""
+    for f, fs in ((100e3, 2.048e6), (-731e3, 8e6), (0.0, 48e3),
+                  (1.0e6, 2.048e6)):
+        k = nco.snap_freq(f, fs)
+        assert nco.snapped_freq_hz(k, fs) == jnco.snapped_freq_hz(k, fs)
+    ks = np.random.default_rng(2).integers(0, nco.DENOM, 33)
+    np.testing.assert_array_equal(nco.snapped_freq_hz(ks, 8e6),
+                                  jnco.snapped_freq_hz(ks, 8e6))
+    for k, p0, n in ((nco.snap_freq(-731e3, 8e6), 12345, 4096),
+                     (nco.DENOM - 7, nco.DENOM - 1, (1 << 17) + 513)):
+        got = nco.lo_angles(k, p0, n)
+        ref = np.asarray(jnco.lo_angles(k, p0, n))
+        assert got.dtype == torch.float32 and got.shape == (n,)
+        np.testing.assert_array_equal(
+            nco.phase_indices(k, p0, n).numpy(),
+            np.asarray(jnco.phase_indices(k, p0, n)).astype(np.int64))
+        np.testing.assert_array_equal(got.numpy(), ref)

@@ -140,3 +140,34 @@ def test_cuda_without_a_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         ReceiverBank(CFG)
+
+
+def test_step_functional_matches_jax_and_leaves_the_bank_alone():
+    """The pure step against the JAX bank's step_functional from the same
+    initial state over two blocks: audio >= 80 dB, the NCO phases
+    bit-equal; the bank's own state unwritten, and the same call twice
+    gives the same bits, which are the bank's own step's."""
+    tb, jb = ReceiverBank(CFG, device="cpu"), JaxBank(JCFG)
+    xs = blocks(2, tb.design.in_block)
+    t_state, j_state = tb.state, jb.state
+    for x in xs:
+        xw = tb.to_device_block(x)
+        t_state, (a_t, bb_t) = tb.step_functional(t_state, xw, tb.params)
+        j_state, (a_j, bb_j) = jb.step_functional(
+            j_state, jb.to_device_block(x), jb.params)
+        assert bb_t is None and bb_j is None
+        got = a_t.numpy().reshape(4, -1, 2)
+        ref = np.asarray(a_j).reshape(4, -1, 2)
+        for i in range(4):
+            g = got[i, :, 0] + 1j * got[i, :, 1]
+            r = ref[i, :, 0] + 1j * ref[i, :, 1]
+            assert snr_db(g, r) >= 80.0, (i, snr_db(g, r))
+        np.testing.assert_array_equal(t_state.ch.nco_phase.numpy(),
+                                      np.asarray(j_state.ch.nco_phase))
+    assert not tb.state.ch.nco_phase.any()
+    xw = tb.to_device_block(xs[0])
+    again = tb.step_functional(tb.state, xw, tb.params)[1][0]
+    first = tb.step_functional(tb.state, xw, tb.params)[1][0]
+    assert torch.equal(again, first)
+    np.testing.assert_array_equal(
+        tb.step_device(xw).numpy(), first.numpy())

@@ -3,7 +3,8 @@ the same audio and baseband as the serial bank at every pipeline depth,
 an rtl_tcp server that keeps reconnecting without data ends the read in
 TimeoutError, the probe dumps an rtl_tcp server, and the latency
 analyzer reads the CSV the port's --watchdog-log writes (mirrors of
-tests/test_runtime.py:218-309 and tests/test_rtltcp.py:154-167)."""
+tests/test_runtime.py:218-309 and tests/test_rtltcp.py:154-167), and
+the Stopwatch against the JAX package's."""
 
 import socket
 import threading
@@ -96,6 +97,47 @@ def test_stop_waits_for_the_prefetch_thread():
     ex.stop()
     assert not t.is_alive()
     assert ex.n_blocks == 3
+
+
+class GatedSource(RampSource):
+    """RampSource whose reads after the first `n_open` wait for `gate`."""
+
+    def __init__(self, n_open):
+        super().__init__()
+        self.n_open = n_open
+        self.gate = threading.Event()
+        self.waiting = threading.Event()
+
+    def read_data(self, n, loop=True):
+        if self.k >= self.n_open:
+            self.waiting.set()
+            self.gate.wait()
+        return super().read_data(n, loop)
+
+
+def test_a_read_that_outlasts_stop_issues_nothing():
+    """A prefetch read still in progress when stop() is called (a source
+    slower than stop's wait) ends without issuing its block: after stop()
+    the executive's thread makes no device call, so another bank's graph
+    capture can start at once."""
+    cfg = PipelineConfig(fs_in=512e3, fs_out=48e3, out_block=1024,
+                         foffset_hz=60e3, receivers=(
+                             ReceiverConfig(fc_hz=10e6, mode=Mode.AM),))
+    src = GatedSource(n_open=4)
+    ex = Executive(ReceiverBank(cfg, device="cpu"), src)
+    issued = []
+    prepare = ex._prepare
+    ex._prepare = lambda pair: (issued.append(1), prepare(pair))[1]
+    ex.run(n_blocks=3)
+    assert src.waiting.wait(timeout=10.0)      # the 5th read has begun
+    n_issued = len(issued)
+    release = threading.Timer(0.2, src.gate.set)
+    release.start()
+    ex.stop()
+    release.join()
+    ex._pf_thread.join(timeout=10.0)
+    assert not ex._pf_thread.is_alive()
+    assert src.k == 5 and len(issued) == n_issued == 4
 
 
 class ReconnectingServer(rtltcp.FakeRtlTcpServer):
@@ -206,3 +248,18 @@ def test_app_watchdog_log_flag(tmp_path):
                          "--watchdog-log", log])
     assert rc == 0 and os.path.exists(log)
     assert latency.analyze(log) is not None
+
+
+def test_stopwatch_matches_the_reference():
+    """The port's Stopwatch accumulates like the JAX package's."""
+    from pysdr_tpu.runtime import profiler as jprof
+    from pysdr_tpu_torch.runtime.profiler import Stopwatch
+    sw, jsw = Stopwatch("blk"), jprof.Stopwatch("blk")
+    for _ in range(3):
+        for w in (sw, jsw):
+            w.start()
+        time.sleep(0.01)
+        dts = [w.stop() for w in (sw, jsw)]
+        assert all(0.009 <= d < 1.0 for d in dts)
+    assert (sw.tag, sw.count) == (jsw.tag, jsw.count) == ("blk", 3)
+    assert 0.027 <= sw.total_s < 3.0 and 0.027 <= jsw.total_s < 3.0

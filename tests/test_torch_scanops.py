@@ -380,3 +380,46 @@ def test_sr_latch_tiling_emulation_matches_twin_and_jax(shape, sparse):
         assert float(last[i]) == float(lj)
     if sparse:
         assert bool((g[0] == gp[0]).all())
+
+
+def test_dc_block_matches_jax_chunked():
+    """dc_block over three chunks with its state carried equals the JAX
+    one (<= 1e-5 relative), and the carried state matches."""
+    rng = np.random.default_rng(41)
+    x = (rng.standard_normal(3000) * 0.1 + 0.7).astype(np.float32)
+    st_t = (0.0, 0.0)
+    st_j = (jnp.float32(0.0), jnp.float32(0.0))
+    for lo, hi in ((0, 1000), (1000, 1001), (1001, 3000)):
+        y_t, st_t = scanops.dc_block(torch.from_numpy(x[lo:hi]), 0.9985,
+                                     st_t)
+        y_j, st_j = jscan.dc_block(jnp.asarray(x[lo:hi]), 0.9985, st_j)
+        assert rel_err(y_t.numpy(), y_j) <= 1e-5, (lo, hi)
+        assert float(st_t[0]) == float(st_j[0])
+        assert abs(float(st_t[1]) - float(st_j[1])) <= 1e-5
+    # the DC is gone by the end
+    assert abs(y_t[-500:].mean().item()) < 0.02
+
+
+@pytest.mark.parametrize("n_stages", [1, 3])
+def test_one_pole_cas_matches_jax(n_stages):
+    """A cascade of one-pole sections, scalar alpha over (n,) and a
+    per-column alpha over (n, k): outputs and each stage's last value
+    against the JAX cascade (<= 1e-5 relative)."""
+    rng = np.random.default_rng(42 + n_stages)
+    x = rng.standard_normal((2048, 3)).astype(np.float32)
+    alpha = np.asarray([0.1, 0.01, 0.3], np.float32)
+    yp = rng.standard_normal((n_stages, 3)).astype(np.float32)
+    y_t, l_t = scanops.one_pole_cas(torch.from_numpy(x),
+                                    torch.from_numpy(alpha),
+                                    torch.from_numpy(yp), n_stages)
+    y_j, l_j = jscan.one_pole_cas(jnp.asarray(x), jnp.asarray(alpha),
+                                  jnp.asarray(yp), n_stages)
+    assert y_t.shape == (2048, 3) and l_t.shape == (n_stages, 3)
+    assert rel_err(y_t.numpy(), y_j) <= 1e-5
+    assert rel_err(l_t.numpy(), l_j) <= 1e-5
+    y_t, l_t = scanops.one_pole_cas(torch.from_numpy(x[:, 0]), 0.05,
+                                    torch.from_numpy(yp[:, 0]), n_stages)
+    y_j, l_j = jscan.one_pole_cas(jnp.asarray(x[:, 0]), 0.05,
+                                  jnp.asarray(yp[:, 0]), n_stages)
+    assert rel_err(y_t.numpy(), y_j) <= 1e-5
+    assert rel_err(l_t.numpy(), l_j) <= 1e-5
