@@ -46,11 +46,17 @@ Phases, each of which must pass (exit 1 on the first failure):
      tests/fixtures/rtty_cq.dat decodes "CQ" and "AA2IL"; then the
      100-station layout of tests/test_rtty.py (synthesized at 96 kHz,
      resampled to 2.048 MHz, 120 kHz off the file's center) replayed
-     from 0.75 s with --fs-out 96 --block 24576 --rtty 0: >= 90 of the
-     100 STii strings in their own channel's text, rtty_scores launched
-     once on every block with channels, and the decoder's wall ms per
-     block against the block's 256 ms; then bank4 for 2 blocks with
-     --save-iq --save-baseband --save-demod, each .dat parsed back.
+     from 0.75 s with --fs-out 96 --block 24576 --rtty 0, four times,
+     the decoder graphed, eager (graph=False), eager, graphed: >= 90 of
+     the 100 STii strings in their own channel's text, the same text
+     channel by channel in every run, the decoder's filterbank graphs
+     (one a frame count: 43, 46 and 47) all captured before the first
+     block, rtty_scores launched once on every block with channels, and
+     the decoder's wall ms per block against the block's 256 ms and its
+     stage_ms, beside the card's name and power limit; both inputs again
+     with --mesh 1,1, decoding the serial runs' text; then bank4 for 2
+     blocks with --save-iq --save-baseband --save-demod, each .dat
+     parsed back.
  10. mesh: the entry point with --mesh 1,1 (through the adapters, one
      CUDA graph for the one shard) at bank4's and chan64's full width:
      every RX's tone, the station channels' tones >= 40 dB, an idle
@@ -709,37 +715,57 @@ def station_of(design, mark_bin, carriers):
     return int(np.argmin(np.abs(carriers + design.shift_hz / 2 - f)))
 
 
-def run_timed_rtty(argv):
-    """app.run_cli(argv) with each RTTYDecoder.decode_block call timed on
-    the host's clock; the scores sync to the host inside the call, so its
-    wall time covers the device work. Returns (rc, app, calls) with one
-    (ms, channels after the call, rtty_scores launches) per call."""
+def run_timed_rtty(argv, graph=True):
+    """argv through the App as run_cli runs it, with the RTTY decoder (if
+    any) at `graph` (False: a graph=False twin in its place before the
+    captures) and each of its decode_block calls timed on the host's
+    clock; the scores come to the host inside the call, so its wall time
+    covers the device work. Returns (rc, app, calls) with one (ms,
+    channels after the call, rtty_scores launches, the decoder's graphs
+    before the call) per call."""
     from pysdr_tpu_torch import app
     from pysdr_tpu_torch.kernels import rtty as krtty
     from pysdr_tpu_torch.models import rtty
 
+    a = app.App(app.build_parser().parse_args(argv))
     calls = []
-    orig = rtty.RTTYDecoder.decode_block
+    dec = a.rtty
+    if dec is not None:
+        if not graph:
+            dec = a.rtty = rtty.RTTYDecoder(dec.design, device=dec.device,
+                                            graph=False)
+        orig = dec.decode_block
 
-    def timed(self, x):
-        n0 = krtty.rtty_scores.launches
-        t0 = time.perf_counter()
-        out = orig(self, x)
-        calls.append(((time.perf_counter() - t0) * 1e3, len(self.channels),
-                      krtty.rtty_scores.launches - n0))
-        return out
-    rtty.RTTYDecoder.decode_block = timed
-    try:
-        rc, a = app.run_cli(argv)
-    finally:
-        rtty.RTTYDecoder.decode_block = orig
-    return rc, a, calls
+        def timed(x, ready=None):
+            n0, g0 = krtty.rtty_scores.launches, dec.graph_count
+            t0 = time.perf_counter()
+            out = orig(x, ready=ready)
+            calls.append(((time.perf_counter() - t0) * 1e3,
+                          len(dec.channels),
+                          krtty.rtty_scores.launches - n0, g0))
+            return out
+        dec.decode_block = timed
+    return a.run(), a, calls
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def channel_text(dec):
+    return [(c["mark_bin"], c["text"]) for c in dec.channels]
 
 
 def rtty_phase(tmp):
     """The RTTY path: the rtty_cq.dat corpus, the 100-station layout at
-    full width, and the recording taps on bank4. Returns the launches of
-    its three runs, summed."""
+    full width with the decoder graphed and eager in turns, both again
+    through --mesh 1,1, and the recording taps on bank4. Returns the
+    launches of its runs, summed."""
     import torch
 
     from pysdr_tpu_torch import kernels
@@ -747,27 +773,42 @@ def rtty_phase(tmp):
 
     total = {}
 
-    def drive(argv):
-        print("argv: " + " ".join(argv), flush=True)
+    def drive(argv, graph=True):
+        print("argv: " + " ".join(argv)
+              + ("" if graph else "  (decoder graph=False)"), flush=True)
         kernels.reset_launch_counts()
-        rc, a, calls = run_timed_rtty(argv)
+        rc, a, calls = run_timed_rtty(argv, graph)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         print(f"launches: {launches}", flush=True)
         check(rc == 0 and a is not None, f"{argv} exited {rc}")
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
+        dec = a.rtty
+        if dec is not None:
+            with_ch = [c for c in calls if c[1] > 0]
+            check(with_ch and all(c[2] == 1 for c in with_ch),
+                  f"rtty_scores did not launch once on every block with "
+                  f"channels: {[(c[1], c[2]) for c in calls]}")
+            want = len(dec.frame_counts) if graph else 0
+            print(f"decoder: frame counts {dec.frame_counts}, graphs "
+                  f"{dec.graph_count} ({calls[0][3]} before the first "
+                  "block)", flush=True)
+            check(dec.graph_count == calls[0][3] == want,
+                  f"decoder graphs {dec.graph_count}, {calls[0][3]} before "
+                  f"the first block, want {want} (graph={graph})")
         return a, calls, launches
 
-    a, calls, launches = drive([
-        "--device", "cuda", "--replay",
-        os.path.join(ROOT, "tests", "fixtures", "rtty_cq.dat"), *RTTY,
-        "--block", "4096"])
+    corpus = ["--device", "cuda", "--replay",
+              os.path.join(ROOT, "tests", "fixtures", "rtty_cq.dat"), *RTTY,
+              "--block", "4096"]
+    a, calls, launches = drive(corpus)
     text = "".join(a.rtty_text)
     print(f"rtty_cq.dat: {text!r}", flush=True)
     check("CQ" in text and "AA2IL" in text, f"rtty_cq.dat decoded {text!r}")
     check(launches["rtty_scores"] > 0, "rtty_scores never launched on the "
           "corpus")
+    corpus_text = channel_text(a.rtty)
 
     path = os.path.join(tmp, "rtty100.dat")
     t0 = time.perf_counter()
@@ -775,34 +816,62 @@ def rtty_phase(tmp):
     print(f"wrote the {RTTY_STATIONS}-station capture at "
           f"{RTTY_FS * RTTY_UP / RTTY_DOWN / 1e6:.3f} MHz in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    a, calls, launches = drive([
-        "--device", "cuda", "--replay", path, "0.75", *RTTY, "--fs-out",
-        str(RTTY_FS / 1e3), "--block", str(RTTY_BLOCK)])
-    print(f"stage_report ms/block: {a.ex.stage_report()}", flush=True)
-    dec = a.rtty
-    got = set()
-    for ch in dec.channels:
-        i = station_of(dec.design, ch["mark_bin"], carriers)
-        if f"ST{i:02d}" in ch["text"]:
-            got.add(i)
-    print(f"{len(dec.channels)} channels; {len(got)} of {RTTY_STATIONS} "
-          f"stations decoded their STii in their own channel; missing "
-          f"{sorted(set(range(RTTY_STATIONS)) - set(got))}", flush=True)
-    check(len(got) >= 90, f"only {len(got)} of {RTTY_STATIONS} stations "
-          "decoded")
-    with_ch = [c for c in calls if c[1] > 0]
-    check(with_ch and all(c[2] == 1 for c in with_ch),
-          f"rtty_scores did not launch once on every block with channels: "
-          f"{[(c[1], c[2]) for c in calls]}")
-    ms = [c[0] for c in calls]
+    hundred = ["--device", "cuda", "--replay", path, "0.75", *RTTY,
+               "--fs-out", str(RTTY_FS / 1e3), "--block", str(RTTY_BLOCK)]
     budget = RTTY_BLOCK / RTTY_FS * 1e3
-    med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
-    print(f"decoder wall ms per block: {[round(t, 3) for t in ms]}; median "
-          f"after the first {med:.3f} ms against a {budget:.0f} ms budget "
-          f"= {budget / med:.1f}x real time, so {len(dec.channels)} "
-          f"channels x {budget / med:.1f} = "
-          f"{len(dec.channels) * budget / med:.0f} channel-decoders at real "
-          "time", flush=True)
+    card = card_line()
+    runs = {}
+    for graph in (True, False, False, True):       # in turns
+        a, calls, _ = drive(hundred, graph)
+        tag = "graphed" if graph else "eager"
+        print(f"stage_report ms/block: {a.ex.stage_report()}", flush=True)
+        dec = a.rtty
+        got = set()
+        for ch in dec.channels:
+            i = station_of(dec.design, ch["mark_bin"], carriers)
+            if f"ST{i:02d}" in ch["text"]:
+                got.add(i)
+        print(f"{tag}: {len(dec.channels)} channels; {len(got)} of "
+              f"{RTTY_STATIONS} stations decoded their STii in their own "
+              f"channel; missing "
+              f"{sorted(set(range(RTTY_STATIONS)) - set(got))}", flush=True)
+        check(len(got) >= 90, f"{tag}: only {len(got)} of {RTTY_STATIONS} "
+              "stations decoded")
+        if graph:
+            check(dec.frame_counts == [43, 46, 47],
+                  f"frame counts {dec.frame_counts}, not [43, 46, 47]")
+        ms = [c[0] for c in calls]
+        med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+        print(f"{tag} decoder wall ms per block ({card}): "
+              f"{[round(t, 3) for t in ms]}; median after the first "
+              f"{med:.3f} ms against a {budget:.0f} ms budget = "
+              f"{budget / med:.1f}x real time, so {len(dec.channels)} "
+              f"channels x {budget / med:.1f} = "
+              f"{len(dec.channels) * budget / med:.0f} channel-decoders at "
+              "real time", flush=True)
+        print(f"{tag} decoder stage_ms over {dec.stage_blocks} blocks "
+              f"({card}): " + json.dumps(dec.stage_ms), flush=True)
+        runs.setdefault(tag, []).append((med, dec.stage_ms,
+                                         channel_text(dec)))
+    serial_text = runs["graphed"][0][2]
+    for tag, rs in runs.items():
+        for _, _, chans in rs:
+            check(chans == serial_text, f"{tag}: the text differs channel "
+                  "by channel from the first graphed run's")
+    print("rtty100 wall ms a block (median after the first): " + json.dumps(
+        {t: [r[0] for r in rs] for t, rs in runs.items()}), flush=True)
+
+    for argv, want, name in ((corpus, corpus_text, "rtty_cq.dat"),
+                             (hundred, serial_text, "rtty100")):
+        a, _, _ = drive([*argv, "--mesh", "1,1"])
+        check(type(a.bank).__name__ == "ShardedStreamBank",
+              f"--mesh 1,1 ran {type(a.bank).__name__}")
+        same = channel_text(a.rtty) == want
+        print(f"{name} --mesh 1,1: {len(a.rtty.channels)} channels, text "
+              f"{'equal to' if same else 'NOT equal to'} the serial run's "
+              "channel by channel", flush=True)
+        check(same, f"{name} --mesh 1,1: the text differs from the serial "
+              f"run's: {channel_text(a.rtty)} against {want}")
 
     prefix = os.path.join(tmp, "taps")
     a, _, _ = drive(["--device", "cuda", *BANK4, "--blocks", "2",
@@ -1706,13 +1775,9 @@ def run():
     phase("1 device")
     device = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind} count {torch.cuda.device_count()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
 
     phase("2 build")
     t0 = time.perf_counter()

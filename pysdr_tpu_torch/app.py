@@ -644,12 +644,15 @@ class App:
             loop_source=not args.no_loop, wire=args.wire,
             pipeline_depth=args.pipeline_depth,
             prefetch=not args.no_prefetch,
-            # carry the baseband only when something reads it
+            # carry the baseband only when something reads it, and copy
+            # it to the host beside the audio for the recorder and panes
             want_bb=(self.rtty is not None or self.bb_writer is not None
-                     or bool(args.bb)))
-        # the display's panes are captured with the bank's step, before
-        # the prefetch thread and the services start
-        self.ex.prepare_hooks.append(self._prepare_display)
+                     or bool(args.bb)),
+            host_bb=self.bb_writer is not None or bool(args.bb))
+        # the display's panes and the RTTY filterbank are captured with
+        # the bank's step, before the prefetch thread and the services
+        # start
+        self.ex.prepare_hooks.append(self._prepare_taps)
         if args.ant and hasattr(self.source, "set_antenna"):
             self.source.set_antenna(args.ant)
         inner_bank = getattr(self.bank, "bank", self.bank)  # mesh adapter
@@ -738,9 +741,11 @@ class App:
                           for f in (args.hop or [])],
                 dwell_s=args.dwell, schedule=sched)
 
-    def _prepare_display(self):
+    def _prepare_taps(self):
         if self.display is not None:
             self.display.prepare()
+        if self.rtty is not None:
+            self.rtty.prepare(self.bank.design.out_block)
 
     def _sync_spots(self, table):
         """UDP SpotTable -> display overlay (kHz wire -> Hz display)."""
@@ -774,8 +779,9 @@ class App:
         display (AF panes every block the decimation keeps, the RF pane
         every --psd-every blocks, the BB panes), and the RTTY decoder fed
         the RX's baseband as the device tensor the executive carried with
-        this block. The baseband comes to the host only for the recorder
-        and the BB panes."""
+        this block, with the events after which it is valid. The
+        baseband's host copy, which the executive started right after the
+        step, feeds the recorder and the BB panes."""
         if self.memmon is not None and ex.n_blocks % 32 == 0:
             self.memmon.take_snapshot()
         if self.aux_sink is not None:
@@ -786,11 +792,10 @@ class App:
                 x, self._aux_taps, "valid").astype(np.float32))
         bb = ex.drained_bb
         disp = self.display
-        need_bb_display = (disp is not None and bb is not None
+        bb_host = None if ex.drained_bb_host is None \
+            else ex.drained_bb_host.numpy()         # complex64 (n_rx, n)
+        need_bb_display = (disp is not None and bb_host is not None
                            and disp.wants_next_bb())
-        bb_host = None
-        if bb is not None and (need_bb_display or self.bb_writer is not None):
-            bb_host = bb.cpu().numpy()              # complex64 (n_rx, n)
         if self.bb_writer is not None and bb_host is not None:
             # interleave channel-last like the demod writer
             self.bb_writer.save_data(bb_host.T)
@@ -802,7 +807,8 @@ class App:
             if need_bb_display:
                 disp.update_bb(bb_host)
         if self.rtty is not None and bb is not None:
-            for i, txt in enumerate(self.rtty.decode_block(bb[self.rtty_rx])):
+            for i, txt in enumerate(self.rtty.decode_block(
+                    bb[self.rtty_rx], ready=ex.drained_bb_ready)):
                 if txt:
                     self.rtty_text.append(txt)
                     print(f"RTTY ch{i}: {txt}", flush=True)

@@ -385,7 +385,7 @@ def _measure_transport_mbps(st: Settings, n_bytes=4 << 20, iters=50):
     def step(state):
         x = upload(buf, dev)
         state = state + x.to(torch.float32).sum()
-        _, events = start_host_copy((x + 1)[:n_bytes // 4])
+        _, _, events = start_host_copy((x + 1)[:n_bytes // 4])
         for ev in events:
             ev.synchronize()
         return state

@@ -121,7 +121,8 @@ def rtty_state_from_numpy(jax_decoder, device) -> RTTYDecoder:
     """A port RTTYDecoder on `device` that continues a JAX RTTYDecoder
     mid-stream: the same design and scan policy, a deep copy of its
     channel dicts, its baseband tail (complex64), soft-bit tail (float32
-    (T, n_ch)) and block count."""
+    (T, n_ch)) and block count. Its frame counts follow the carried
+    tail: prepare it (or let its first block do so) after this."""
     j = jax_decoder
     dec = RTTYDecoder(RTTYDesign(**dataclasses.asdict(j.design)),
                       rescan_every=j.rescan_every,
@@ -129,8 +130,5 @@ def rtty_state_from_numpy(jax_decoder, device) -> RTTYDecoder:
                       rel_db=j.rel_db, device=device)
     dec.channels = copy.deepcopy(j.channels)
     dec._n_blocks = j._n_blocks
-    for name in ("_iq_tail", "_soft_tail"):
-        tail = getattr(j, name)
-        if tail is not None:
-            setattr(dec, name, _tensor(tail, dec.device))
+    dec.set_tails(j._iq_tail, j._soft_tail)
     return dec

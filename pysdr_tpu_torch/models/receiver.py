@@ -127,8 +127,9 @@ class BankIO:
 
     def baseband_from_wire(self, bb: torch.Tensor) -> torch.Tensor:
         """A step's baseband (_last_bb, a new tensor each step) -> the
-        drained block's baseband, complex64 (n_rx, out_block), on the
-        device: the RTTY decoder reads it there."""
+        block's baseband, complex64 (n_rx, out_block), on the device (the
+        executive calls it right after the step): the RTTY decoder reads
+        it there."""
         return bb
 
     def step(self, x) -> np.ndarray:

@@ -6,17 +6,24 @@ host half is the JAX package's, unchanged: the Baudot tables,
 RTTYDesign, the templates, the test-signal synthesizer, and the
 decoder's detection, rescan, symbol slicing and LTRS/FIGS state machine.
 The device half runs in torch on the decoder's device: Kaiser-windowed
-frames at hop spacing -> |FFT| (`filterbank_block`), then the soft bits
-at every channel's mark/space bins and the matched scores of all 32
-Baudot templates at every frame offset in one call (`rtty_scores`): on a
-CUDA tensor the hand-written kernel (csrc/rtty.cu, kernels.rtty), on a
-CPU tensor the plain twin `rtty_scores_ref`, with no fallback from one to
-the other.
+frames at hop spacing -> |FFT| and their mean over frames
+(`filterbank_block`), then the soft bits at every channel's mark/space
+bins and the matched scores of all 32 Baudot templates at every frame
+offset in one call (`rtty_scores`): on a CUDA tensor the hand-written
+kernel (csrc/rtty.cu, kernels.rtty), on a CPU tensor the plain twin
+`rtty_scores_ref`, with no fallback from one to the other.
 
-Per block the decoder pulls to the host only what the host logic reads:
-the mean spectrum (nfft,) for detection, rescan and `last_spectrum`, and
-the scores (n_off, n_ch, 32) for the state machine. The baseband tail and
-the soft-bit tail stay on the device.
+The filterbank is a body over static buffers, one set a frame count
+(the JAX decoder's `jax.jit` of `filterbank_block`, which it feeds the
+frame-exact slice so that it sees few shapes): on a card it is captured
+once a frame count as a CUDA graph and replayed. Every device op of the
+decoder runs on its own CUDA stream, which waits on the events after
+which the block is valid, and per block the decoder pulls to the host
+only what the host logic reads, each by one copy into pinned memory
+whose event it waits on alone: the mean spectrum (nfft,) for detection,
+rescan and `last_spectrum`, and the scores (n_off, n_ch, 32) for the
+state machine. The baseband tail and the soft-bit tail stay on the
+device.
 
 One departure from the host half: where the JAX decoder's timing search
 takes the argmax of scores that are equal but for float rounding, this
@@ -28,12 +35,15 @@ may decode a character apart.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from pysdr_tpu_torch.device import resolve_device
+from pysdr_tpu_torch.models import graphstep
 
 # ITA2 / Baudot code tables (LTRS and FIGS shifts), index = 5-bit code.
 BAUDOT_LTRS = [
@@ -184,6 +194,47 @@ def _as_baseband(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.complex64).reshape(-1)
 
 
+def n_frames(n: int, design: RTTYDesign) -> int:
+    """The frames at hop spacing that n samples hold (< 1: none)."""
+    return (n - design.bit_len) // design.hop + 1
+
+
+def frame_counts(design: RTTYDesign, tail: int, block: int) -> list[int]:
+    """The frame counts that a stream of `block`-sample blocks gives the
+    filterbank after a carried baseband tail of `tail` samples: the tail
+    arithmetic of decode_block, run until the tail's length repeats.
+    Sorted, without 0 (a block that completes no frame)."""
+    if block < 1:
+        raise ValueError(f"block: {block} samples")
+    counts, seen = set(), set()
+    while tail not in seen:
+        seen.add(tail)
+        tail += block
+        f = n_frames(tail, design)
+        if f >= 1:
+            counts.add(f)
+            tail -= f * design.hop
+    return sorted(counts)
+
+
+@dataclasses.dataclass
+class _Frames:
+    """The static buffers of one frame count F: the filterbank's input,
+    [baseband tail | block] as (F - 1) * hop + bit_len complex64
+    samples, its magnitudes (F, nfft) and their mean over the frames
+    (nfft,), float32; with graph=True on a card, the filterbank captured
+    over them."""
+    inp: torch.Tensor
+    mags: torch.Tensor
+    mean: torch.Tensor
+    captured: graphstep.Captured | None = None
+
+
+_DECODER_TENSORS = "the decoder's window"
+# the parts of decode_block that stage_ms times
+STAGES = ("spectrum", "detect", "scores", "channels")
+
+
 class RTTYDecoder:
     """Host-driven streaming decoder over the device filterbank and
     matched filter.
@@ -192,16 +243,38 @@ class RTTYDecoder:
     (reference find_sigs scan, rtty.py:744-776). decode_block: per channel,
     slice symbol windows on the recovered clock, argmax matched scores,
     SNR-gate, and feed the baudot FSM (rtty.py:567-700).
+
+    The filterbank runs over static buffers, one set a frame count
+    (`prepare`). On a card every device op of the decoder is issued on
+    its own stream (`stream`), and with graph=True (the default) the
+    filterbank of each frame count is captured once as a CUDA graph
+    (models/graphstep.capture) and replayed; graph=False runs the same
+    body eagerly, as the CPU always does. A block whose frame count was
+    not prepared raises, and a failed capture or replay raises: nothing
+    falls back to the eager body.
     """
 
     def __init__(self, design: RTTYDesign, rescan_every: int = 4,
                  expire_after: int = 4, thresh_db: float = 10.0,
-                 rel_db: float = 40.0, device="cuda"):
+                 rel_db: float = 40.0, device="cuda", graph: bool = True):
         self.design = design
         self.device = resolve_device(device)
         self.window = torch.from_numpy(design.window()).to(self.device)
         self.templates = torch.from_numpy(
             char_templates(design)).to(self.device)
+        on_card = self.device.type == "cuda"
+        self.graph = bool(graph) and on_card
+        self.stream = torch.cuda.Stream(self.device) if on_card else None
+        self._frames: dict[int, _Frames] = {}
+        # pinned host buffers of the pulls, by name, and the last pull's
+        # event (on a card)
+        self._host: dict[str, torch.Tensor] = {}
+        self._pulled = torch.cuda.Event() if on_card else None
+        # the channels' mark bins and their (mark, space) rows on the
+        # device, uploaded when the channel list changes
+        self._bins: tuple = ((), None)
+        self._stage_sum = dict.fromkeys(STAGES, 0.0)
+        self.stage_blocks = 0
         self.channels: list[dict] = []   # {mark_bin, figs, text, ...}
         self._soft_tail = None           # float32 (T, n_ch) on the device
         self._iq_tail = None             # keeps frames hop-aligned across blocks
@@ -217,6 +290,138 @@ class RTTYDecoder:
         self.rel_db = rel_db
         self._n_blocks = 0
         self.last_spectrum = None
+
+    @property
+    def graph_count(self) -> int:
+        """CUDA graphs captured so far: one per frame count."""
+        return sum(f.captured is not None for f in self._frames.values())
+
+    @property
+    def frame_counts(self) -> list[int]:
+        """The frame counts prepared so far."""
+        return sorted(self._frames)
+
+    @property
+    def stage_ms(self) -> dict:
+        """Mean ms a block, over `stage_blocks` (the blocks that ran the
+        filterbank), in each part of decode_block on the host's clock:
+        "spectrum" until the mean spectrum is on the host (the wait on
+        the block's events, the copies into the static input, the
+        filterbank and the pull), "detect" detection or rescan, "scores"
+        from the issue of rtty_scores until its scores are on the host,
+        "channels" the per-channel state machine."""
+        n = max(1, self.stage_blocks)
+        return {k: v / n for k, v in self._stage_sum.items()}
+
+    def _on_stream(self):
+        return torch.cuda.stream(self.stream) if self.stream is not None \
+            else contextlib.nullcontext()
+
+    def _tensors(self) -> tuple:
+        return (self.window,)
+
+    def _filterbank(self, inp: torch.Tensor) -> tuple:
+        mags = filterbank_block(inp, self.design, self.window)
+        return mags, mags.mean(dim=0)
+
+    def _body(self, inp: torch.Tensor, outs: tuple) -> None:
+        """The filterbank over one frame count's static buffers."""
+        for o, r in zip(outs, self._filterbank(inp)):
+            o.copy_(r)
+
+    def prepare(self, block: int) -> list[int]:
+        """Make the static buffers of every frame count that blocks of
+        `block` samples give after the decoder's baseband tail
+        (frame_counts), and on a card with graph=True capture the
+        filterbank over each; a count done already is kept. Returns the
+        counts. Call it after carried state is loaded (set_tails), and
+        before other threads work on the card: a capture fails while
+        another thread issues work there (the App runs it from
+        Executive.prepare)."""
+        tail = 0 if self._iq_tail is None else int(self._iq_tail.shape[0])
+        counts = frame_counts(self.design, tail, int(block))
+        for f in counts:
+            if f not in self._frames:
+                self._frames[f] = self._make(f)
+        if self.stream is not None:
+            # the pulls' pinned buffers at their largest (a soft tail of
+            # at most 2 * fpc rows before a block's frames), and
+            # rtty_scores' library, made outside the run: a pinned
+            # allocation inside it may wait on the whole card
+            d = self.design
+            n_off = d.frames_per_char + max(self._frames) + 1
+            self._pinned("mean", d.nfft, torch.float32)
+            self._pinned("scores", n_off * d.max_channels * 32,
+                         torch.float32)
+            self._pinned("bins", 2 * d.max_channels, torch.int32)
+            from pysdr_tpu_torch.kernels import build
+            build.library()
+        return counts
+
+    def _make(self, f: int) -> _Frames:
+        d, dev = self.design, self.device
+        inp = torch.zeros((f - 1) * d.hop + d.bit_len, dtype=torch.complex64,
+                          device=dev)
+        if not self.graph:
+            return _Frames(inp, torch.empty((f, d.nfft), dtype=torch.float32,
+                                            device=dev),
+                           torch.empty(d.nfft, dtype=torch.float32,
+                                       device=dev))
+        cap, (mags, mean) = graphstep.capture(
+            dev, lambda: self._filterbank(inp),
+            lambda outs: self._body(inp, outs), self._tensors, self.stream,
+            _DECODER_TENSORS)
+        return _Frames(inp, mags, mean, cap)
+
+    def set_tails(self, iq_tail, soft_tail) -> None:
+        """Load carried state onto the decoder's device, on its stream:
+        the baseband tail (complex (n,), or float32 (n, 2) pairs) and the
+        soft-bit tail (float32 (T, n_ch)), arrays or tensors, or None."""
+        with self._on_stream():
+            self._iq_tail = None if iq_tail is None \
+                else _as_baseband(iq_tail, self.device)
+            self._soft_tail = None if soft_tail is None else torch.as_tensor(
+                soft_tail, dtype=torch.float32).to(self.device)
+
+    def _pinned(self, slot: str, n: int, dtype) -> torch.Tensor:
+        """The first n elements of the decoder's pinned host buffer
+        `slot`, made or grown to fit."""
+        buf = self._host.get(slot)
+        if buf is None or buf.numel() < n:
+            buf = self._host[slot] = torch.empty(n, dtype=dtype,
+                                                 pin_memory=True)
+        return buf[:n]
+
+    def _pull(self, t: torch.Tensor, slot: str) -> np.ndarray:
+        """t's values on the host. On a card: one non_blocking copy on the
+        decoder's stream into its pinned buffer `slot`, then a wait on
+        that copy's event alone; the array views the buffer, which the
+        next pull into `slot` rewrites. On the CPU: t's own values."""
+        if self.stream is None:
+            return t.numpy()
+        h = self._pinned(slot, t.numel(), t.dtype).view(t.shape)
+        h.copy_(t, non_blocking=True)
+        self._pulled.record(self.stream)
+        self._pulled.synchronize()
+        return h.numpy()
+
+    def _device_bins(self) -> torch.Tensor:
+        """(2, n_ch) int32 on the device: the channels' mark bins and
+        their space bins, uploaded when the channel list changed (on a
+        card from the pinned buffer "bins", whose last upload the mean
+        spectrum's pull of this block has waited for)."""
+        key = tuple(c["mark_bin"] for c in self.channels)
+        if self._bins[0] != key:
+            mark = torch.tensor(key, dtype=torch.int32)
+            bins = torch.stack([mark, (mark - self.design.shift_bins)
+                                % self.design.nfft])
+            if self.stream is not None:
+                h = self._pinned("bins", bins.numel(), torch.int32)
+                h = h.view(bins.shape)
+                h.copy_(bins)
+                bins = h.to(self.device, non_blocking=True)
+            self._bins = (key, bins)
+        return self._bins[1]
 
     def _new_channel(self, mark_bin: int) -> dict:
         return {"mark_bin": int(mark_bin), "figs": False, "text": "",
@@ -318,64 +523,113 @@ class RTTYDecoder:
                 tail = self._soft_tail
                 n_old = tail.shape[1]
                 idx = torch.tensor([old_idx.get(ch["mark_bin"], n_old)
-                                    for ch in survivors], dtype=torch.long,
-                                   device=tail.device)
-                padded = torch.cat([tail, tail.new_zeros((len(tail), 1))], 1)
-                self._soft_tail = padded.index_select(1, idx)
+                                    for ch in survivors], dtype=torch.long)
+                with self._on_stream():
+                    idx = idx.to(tail.device)
+                    padded = torch.cat(
+                        [tail, tail.new_zeros((len(tail), 1))], 1)
+                    self._soft_tail = padded.index_select(1, idx)
         self.channels = survivors
         return added, removed
 
-    def decode_block(self, x) -> list[str]:
+    def decode_block(self, x, ready=None) -> list[str]:
         """Process one baseband block (complex (n,) or float32 (n, 2)
         pairs, a tensor or an array); returns newly decoded text per
-        channel. Device: filterbank + soft bits + matched scores; host:
-        symbol slicing + baudot FSM."""
+        channel. Device, on the decoder's stream: [baseband tail | block]
+        into the frame count's static input, the filterbank (on a card
+        with graph=True a graph replay), soft bits + matched scores;
+        host: detection or rescan, symbol slicing + baudot FSM.
+
+        ready: on a card, the CUDA events after which a device block is
+        valid (the executive's drained_bb_ready), which the decoder's
+        stream waits on; None waits on all work issued so far on the
+        current stream. The first block of an unprepared decoder
+        prepares its own length; a block whose frame count was not
+        prepared raises ValueError and leaves the decoder as it was."""
+        if self.stream is not None:
+            if ready is None:
+                self.stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+            else:
+                for ev in ready:
+                    self.stream.wait_event(ev)
+        with self._on_stream():
+            x = _as_baseband(x, self.device)
+            if x.is_cuda:
+                # made on another stream, read on this one
+                x.record_stream(self.stream)
+            if not self._frames:
+                self.prepare(x.shape[0])
+            laps = [time.perf_counter()]
+            try:
+                return self._decode(x, laps)
+            finally:
+                if len(laps) > 1:
+                    laps += [laps[-1]] * (len(STAGES) + 1 - len(laps))
+                    for k, a, b in zip(STAGES, laps, laps[1:]):
+                        self._stage_sum[k] += (b - a) * 1e3
+
+    def _decode(self, x: torch.Tensor, laps: list) -> list[str]:
+        """decode_block's work on the decoder's stream; appends the
+        host's clock to `laps` at the end of each part it runs (STAGES)."""
         d = self.design
-        x = _as_baseband(x, self.device)
-        if self._iq_tail is not None:
-            x = torch.cat([self._iq_tail, x])
-        bl, hop = d.bit_len, d.hop
-        n_frames = (len(x) - bl) // hop + 1
-        if n_frames < 1:
-            self._iq_tail = x
+        tail = self._iq_tail
+        tl = 0 if tail is None else tail.shape[0]
+        f = n_frames(tl + x.shape[0], d)
+        if f < 1:
+            self._iq_tail = x.clone() if tail is None else torch.cat([tail, x])
             return ["" for _ in self.channels]
-        self._iq_tail = x[n_frames * hop:].clone()
-        mags = filterbank_block(x[:(n_frames - 1) * hop + bl], d,
-                                self.window)
+        fr = self._frames.get(f)
+        if fr is None:
+            raise ValueError(
+                f"RTTY decoder: {x.shape[0]} samples after a {tl}-sample "
+                f"tail make {f} frames, but the decoder was prepared for "
+                f"{self.frame_counts}")
+        if tl:
+            fr.inp[:tl].copy_(tail)
+        fr.inp[tl:].copy_(x[:fr.inp.shape[0] - tl])
+        cut = f * d.hop
+        self._iq_tail = x[cut - tl:].clone() if cut >= tl \
+            else torch.cat([tail[cut:], x])
+        if fr.captured is not None:
+            fr.captured.replay()
+        else:
+            self._body(fr.inp, (fr.mags, fr.mean))
         # spectrum tap for the live RTTY waterfall (the reference RTTY
         # window's top pane, rtty.py:92-371): mean |X| over this block
-        avg = mags.mean(dim=0).cpu().numpy()
+        avg = self._pull(fr.mean, "mean").copy()
+        laps.append(time.perf_counter())
+        self.stage_blocks += 1
         self.last_spectrum = avg
         self._n_blocks += 1
         if not self.channels:
             self.detect_channels(avg)
-            if not self.channels:
-                return []
         elif self._n_blocks % self.rescan_every == 0:
             # continuous station add/expire (reference re-scans every
             # pass, rtty.py:744-776)
             self.rescan(avg)
-            if not self.channels:
-                return []
+        laps.append(time.perf_counter())
+        if not self.channels:
+            return []
         n_ch = len(self.channels)
-        mark = torch.tensor([c["mark_bin"] for c in self.channels],
-                            dtype=torch.int32)
-        space = (mark - d.shift_bins) % d.nfft
+        bins = self._device_bins()
         # persistent soft-bit buffer so characters straddling block edges
         # decode intact (the reference's prev-symbol concat,
         # rtty.py:825-831); a tail of another channel count is dropped
         tail = self._soft_tail
         if tail is None or tail.shape[1] != n_ch:
-            tail = mags.new_zeros((0, n_ch))
-        soft, sc = rtty_scores(mags, mark.to(self.device),
-                               space.to(self.device), tail, self.templates)
+            tail = fr.mags.new_zeros((0, n_ch))
+        soft, sc = rtty_scores(fr.mags, bins[0], bins[1], tail,
+                               self.templates)
         fpc = d.frames_per_char
         if soft.shape[0] < fpc:
             # not one character's worth of frames yet (small device
             # blocks) — accumulate and wait
             self._soft_tail = soft
+            laps.append(time.perf_counter())
             return ["" for _ in self.channels]
-        sc = sc.cpu().numpy()                         # (n_off, n_ch, 32)
+        sc = self._pull(sc, "scores")                 # (n_off, n_ch, 32)
+        laps.append(time.perf_counter())
         out = [self._decode_channel(sc[:, ci, :], ch)
                for ci, ch in enumerate(self.channels)]
         # trim consumed frames; shift channel positions into the kept tail
@@ -383,6 +637,7 @@ class RTTYDecoder:
         self._soft_tail = soft[trim:].clone()
         for ch in self.channels:
             ch["pos"] = max(0, ch.get("pos", 0) - trim)
+        laps.append(time.perf_counter())
         return out
 
     def _decode_channel(self, scores: np.ndarray, ch: dict) -> str:

@@ -24,7 +24,9 @@ block:
   * the step returns one audio wire piece a shard, a static output the
     next call overwrites: the executive copies each to the host right
     after dispatch (executive.start_host_copy), and the baseband pieces
-    are copied out (_last_bb); audio_from_wire puts the pieces together;
+    are copied out (_last_bb), which the executive gathers right after
+    the step (baseband_from_wire); audio_from_wire puts the audio pieces
+    together;
   * the carried state is the adapter's own static tensors: FIR/resampler
     state crosses calls exactly (the previous super-block's RF tail
     feeds shard 0's halo); NCO/BFO phases are continuous via carried

@@ -9,11 +9,13 @@ bank's step (ReceiverBank, ChannelizerBank) is one CUDA graph replay a
 block, a --mesh adapter's one replay a shard, captured by `prepare`
 before the prefetch thread starts (a capture fails if another thread
 works on the card meanwhile). Right after a block's step is issued, its
-audio wire (the step's static output, rewritten by the next step)
-starts copying into pinned host memory with one CUDA event a device
-(start_host_copy, the reference's copy_to_host_async), so the drain of
-block k-D waits for that block's copy alone, not for the steps and
-uploads queued after it.
+audio wire (the step's static output, rewritten by the next step), and
+its baseband when the caller reads that on the host, start copying into
+pinned host memory with one CUDA event a device (start_host_copy, the
+reference's copy_to_host_async), so the drain of block k-D waits for
+that block's copies alone, not for the steps and uploads queued after
+it; the same events tell a consumer of the baseband on the card (the
+RTTY decoder, on its own stream) when the block's baseband is valid.
 Uploads go through pinned host memory with a non_blocking copy. Control
 mutations arrive through a thread-safe queue and are applied between
 blocks as writes into the bank's params; each copies the new params up
@@ -53,35 +55,40 @@ def upload(q: torch.Tensor, device: torch.device) -> torch.Tensor:
     return pinned.to(device, non_blocking=True)
 
 
-def start_host_copy(audio_w):
-    """Start a step's audio wire (a tensor, or a tuple of one a shard)
-    copying to the host right after dispatch (the reference's
-    copy_to_host_async). A CUDA piece goes to pinned memory from the
-    caching host allocator with a non_blocking copy, which holds its block
-    until the copy is done; one CUDA event a device follows its copies. A
-    CPU piece is copied too: the bank's next step rewrites its output.
-    Returns (host pieces shaped as audio_w, events)."""
+def start_host_copy(audio_w, bb=None):
+    """Start a step's audio wire (a tensor, or a tuple of one a shard),
+    and the block's baseband (a tensor) when one is given, copying to the
+    host right after dispatch (the reference's copy_to_host_async). A
+    CUDA piece goes to pinned memory from the caching host allocator with
+    a non_blocking copy, which holds its block until the copy is done;
+    one CUDA event a device follows its copies, and so the step and
+    everything issued before them. A CPU piece is copied too: the bank's
+    next step rewrites its output. Returns (host pieces shaped as
+    audio_w, host baseband or None, events)."""
     one = isinstance(audio_w, torch.Tensor)
     pieces = [audio_w] if one else list(audio_w)
+    if bb is not None:
+        pieces.append(bb)
     host = [p.to("cpu", non_blocking=True) if p.is_cuda else p.clone()
             for p in pieces]
+    host_bb = host.pop() if bb is not None else None
     events = []
     for dev in dict.fromkeys(p.device for p in pieces if p.is_cuda):
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(dev))
         events.append(ev)
-    return (host[0] if one else tuple(host)), events
+    return (host[0] if one else tuple(host)), host_bb, events
 
 
 def drain(bank, entry):
-    """Wait for one block's host copy alone; (host audio complex64 (n_rx,
-    out_block), the block's baseband from bank.baseband_from_wire, or
-    None). entry: (start_host_copy's result, the step's baseband)."""
-    (host_audio, events), bb = entry
+    """Wait for one block's host copies alone; (host audio complex64
+    (n_rx, out_block), the block's baseband on the device or None).
+    entry: (start_host_copy's result, the block's baseband from
+    bank.baseband_from_wire, or None)."""
+    (host_audio, _, events), bb = entry
     for ev in events:
         ev.synchronize()
-    audio = bank.audio_from_wire(host_audio)
-    return audio, None if bb is None else bank.baseband_from_wire(bb)
+    return bank.audio_from_wire(host_audio), bb
 
 
 class Executive:
@@ -89,7 +96,8 @@ class Executive:
                  raw_writer=None, demod_writer=None,
                  psd_callback: Callable | None = None, loop_source=True,
                  wire: str = "f32", pipeline_depth: int = 2,
-                 want_bb: bool = True, prefetch: bool = True):
+                 want_bb: bool = True, prefetch: bool = True,
+                 host_bb: bool = False):
         """bank: a models.receiver.ReceiverBank,
         models.channelizer_bank.ChannelizerBank or a parallel.adapter
         bank, driven only through design.{in_block, fs_in, fs_out}, n_rx,
@@ -99,7 +107,9 @@ class Executive:
         read_packed(n);
         wire: "f32" | "i16" | "i8" RF format across host->device;
         pipeline_depth: device blocks in flight before the oldest drains;
-        prefetch: read + quantize + upload the next blocks on a thread."""
+        prefetch: read + quantize + upload the next blocks on a thread;
+        want_bb: carry each block's baseband (bank._last_bb) to the
+        drain; host_bb: copy it to the host too, beside the audio."""
         if wire not in ("f32", "i16", "i8"):
             raise ValueError(f"unknown wire {wire!r}")
         self.bank = bank
@@ -109,6 +119,7 @@ class Executive:
         self.wire = wire
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.want_bb = want_bb
+        self.host_bb = host_bb
         self.prefetch = prefetch
         self._pf_q: queue.Queue | None = None
         self._pf_thread: threading.Thread | None = None
@@ -136,8 +147,12 @@ class Executive:
         self._issue_lock = threading.Lock()
         self.n_blocks = 0
         self.last_rf_block: np.ndarray | None = None
-        # the drained block's baseband: a device tensor (n_rx, out_block)
+        # the drained block's baseband: a device tensor (n_rx, out_block),
+        # the events after which it is valid (one a device, [] on the CPU)
+        # and, with host_bb, its host copy (a complex64 tensor)
         self.drained_bb = None
+        self.drained_bb_ready: list = []
+        self.drained_bb_host = None
         # mean ms/block per stage: read = host source, upload = quantize
         # (the host's wire quantization) + pin+issue (the copy into pinned
         # memory and the host->device issue), dispatch = device step issue
@@ -291,8 +306,9 @@ class Executive:
         def finish(entry):
             nonlocal next_deadline
             t0 = time.perf_counter()
-            # waits for this block's host copy alone
+            # waits for this block's host copies alone
             audio, self.drained_bb = drain(self.bank, entry)
+            (_, self.drained_bb_host, self.drained_bb_ready), _ = entry
             self.stage_ms["drain"] += (time.perf_counter() - t0) * 1e3
             for i, ring in enumerate(self.audio_rings):
                 ring.push(audio[i])
@@ -334,8 +350,11 @@ class Executive:
                     t0 = time.perf_counter()
                     audio_w = self.bank.step_device(xb)      # async
                     bb = self.bank._last_bb if self.want_bb else None
-                    # the host copy starts now, behind this step only
-                    pending.append((start_host_copy(audio_w), bb))
+                    if bb is not None:
+                        bb = self.bank.baseband_from_wire(bb)
+                    # the host copies start now, behind this step only
+                    pending.append((start_host_copy(
+                        audio_w, bb if self.host_bb else None), bb))
                     self.stage_ms["dispatch"] += \
                         (time.perf_counter() - t0) * 1e3
                     # read the next block only if it will be dispatched

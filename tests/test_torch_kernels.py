@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (pysdr_tpu_torch/csrc/scan.cu, pfb.cu,
 rtty.cu) against their plain torch twins, and the twins against a serial
 loop; on a card also the CUDA graphs of the banks' steps, the --mesh
-shards and the display's panes against their eager twins.
+shards, the display's panes and the RTTY decoder's filterbank against
+their eager twins, and the host pulls that must not wait on a bank step.
 
 Imports no jax, so it also runs on a card host without the JAX package:
 
@@ -1271,3 +1272,191 @@ def test_display_capture_with_a_host_sync_raises(cuda):
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, cwd=root)
     assert p.stdout.strip().startswith("raised 0"), (p.stdout, p.stderr)
+
+
+# ---- the RTTY decoder: its filterbank graphs and its own stream ----
+
+def _rtty_stations(d, n):
+    """n baseband samples at d.fs: station A at -1500 Hz throughout, B at
+    +800 Hz from n/3 on and C at +2500 Hz until n/2, each keying Baudot
+    text from the end of its idle preamble, over a little noise: its
+    rescans add B and expire C."""
+    x = (1e-3 * _noise_blocks(n, 1, 72)[0]).astype(np.complex64)
+    idle = 4 * d.bits_per_char * d.bit_len
+    for text, hz, start, stop in (("RYRY DE AAA ", -1500.0, 0, n),
+                                  ("CQ DE BBB ", 800.0, n // 3, n),
+                                  ("TEST CCC ", 2500.0, 0, n // 2)):
+        s = rtty.synthesize_rtty(text * 200, d, carrier_hz=hz)[idle:]
+        x[start:stop] += s[:stop - start]
+    return x
+
+
+def _rtty_state(dec):
+    return (dec.channels, dec.last_spectrum, dec._iq_tail, dec._soft_tail)
+
+
+def _rtty_states_equal(a, b):
+    (ca, sa, ia, ta), (cb, sb, ib, tb) = _rtty_state(a), _rtty_state(b)
+    return (ca == cb and np.array_equal(sa, sb) and torch.equal(ia, ib)
+            and ((ta is None and tb is None) or torch.equal(ta, tb)))
+
+
+@pytest.mark.cuda
+def test_graphed_rtty_decoder_equals_eager(cuda):
+    """64 blocks of a three-station synth, whose rescans add a channel and
+    expire one, through a graphed decoder and its graph=False twin: every
+    call's text, the channels, the spectrum and both tails bit-equal; one
+    graph a frame count, all captured by prepare, none eager; rtty_scores
+    launched once a block with channels."""
+    d = rtty.RTTYDesign(fs=12e3)
+    block = 4096
+    x = _rtty_stations(d, 64 * block)
+    kw = {"rescan_every": 2, "expire_after": 2}
+    g = rtty.RTTYDecoder(d, device=cuda, **kw)
+    e = rtty.RTTYDecoder(d, device=cuda, graph=False, **kw)
+    counts = g.prepare(block)
+    assert e.prepare(block) == counts == rtty.frame_counts(d, 0, block)
+    assert g.graph_count == len(counts) >= 2 and e.graph_count == 0
+    n_ch, texts = set(), {}
+    for k in range(64):
+        xd = torch.from_numpy(x[k * block:(k + 1) * block]).to(cuda)
+        n0 = krtty.rtty_scores.launches
+        want = e.decode_block(xd)
+        assert krtty.rtty_scores.launches - n0 == (1 if e.channels else 0)
+        assert g.decode_block(xd) == want, k
+        assert _rtty_states_equal(g, e), k
+        n_ch.add(len(g.channels))
+        texts.update((c["mark_bin"], c["text"]) for c in g.channels)
+    assert len(n_ch) >= 2, n_ch
+    assert all(any(s in t for t in texts.values())
+               for s in ("AAA", "BBB", "CCC")), texts
+    assert g.graph_count == len(counts) and g.frame_counts == counts
+
+
+@pytest.mark.cuda
+def test_rtty_unprepared_frame_count_raises_on_the_card(cuda):
+    """A block whose frame count a graphed decoder was not prepared for
+    raises and is never run eagerly: no body, the same tail and block
+    count, no new capture."""
+    d = rtty.RTTYDesign(fs=12e3)
+    dec = rtty.RTTYDecoder(d, device=cuda)
+    counts = dec.prepare(4096)
+    xs = _noise_blocks(4096, 2, 70)
+    dec.decode_block(xs[0])
+    ran = []
+    body = dec._body
+    dec._body = lambda inp, outs: (ran.append(1), body(inp, outs))
+    tail, n = dec._iq_tail.clone(), dec._n_blocks
+    with pytest.raises(ValueError, match="prepared for"):
+        dec.decode_block(xs[1][:2000])
+    assert not ran and dec._n_blocks == n
+    assert torch.equal(dec._iq_tail, tail)
+    assert dec.graph_count == len(counts)
+
+
+@pytest.mark.cuda
+def test_rtty_capture_with_a_host_sync_raises(cuda):
+    """A filterbank that waits on the card inside the capture (a .item())
+    fails its capture loudly: prepare raises, in a child process so the
+    failed capture leaves this one's card state alone."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "from pysdr_tpu_torch.models import rtty\n"
+        "dec = rtty.RTTYDecoder(rtty.RTTYDesign(fs=12e3))\n"
+        "fb = dec._filterbank\n"
+        "def synced(inp):\n"
+        "    out = fb(inp)\n"
+        "    out[1][0].item()\n"
+        "    return out\n"
+        "dec._filterbank = synced\n"
+        "try:\n"
+        "    dec.prepare(4096)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', dec.graph_count, type(e).__name__)\n"
+        "else:\n"
+        "    print('captured', dec.graph_count)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=root)
+    assert p.stdout.strip().startswith("raised 0"), (p.stdout, p.stderr)
+
+
+def _sleep_cycles_a_ms():
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    b.synchronize()
+    return 10 ** 7 / a.elapsed_time(b)
+
+
+@pytest.mark.cuda
+def test_rtty_pulls_do_not_wait_on_a_bank_step(cuda):
+    """With the card's default stream held busy behind a bank step
+    (torch.cuda._sleep) queued after the block's event, a graphed
+    decoder, on its own stream, waits on that event alone: both of its
+    pulls (the mean spectrum and the scores) return long before the sleep
+    ends, with what an eager decoder decodes once the card is idle."""
+    import time
+    d = rtty.RTTYDesign(fs=12e3)
+    block = 4096
+    x = _rtty_stations(d, 5 * block)
+    g = rtty.RTTYDecoder(d, device=cuda)
+    e = rtty.RTTYDecoder(d, device=cuda, graph=False)
+    for dec in (g, e):
+        dec.prepare(block)
+    xds = [torch.from_numpy(x[k * block:(k + 1) * block]).to(cuda)
+           for k in range(5)]
+    for xd in xds[:4]:                     # the caching allocator warm
+        assert g.decode_block(xd) == e.decode_block(xd)
+    cycles_a_ms = _sleep_cycles_a_ms()
+    _, bank = _small_bank(cuda)
+    xb = bank.to_device_block(_noise_blocks(bank.design.in_block, 1, 73)[0])
+    torch.cuda.synchronize()
+    ready = torch.cuda.Event()
+    ready.record()
+    bank.step_device(xb)
+    torch.cuda._sleep(int(cycles_a_ms * 1500))                 # ~1.5 s busy
+    n0 = krtty.rtty_scores.launches
+    t0 = time.perf_counter()
+    got = g.decode_block(xds[4], ready=[ready])
+    waited = time.perf_counter() - t0
+    assert waited < 0.5, waited
+    assert g.channels and krtty.rtty_scores.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got == e.decode_block(xds[4])
+    assert _rtty_states_equal(g, e)
+
+
+@pytest.mark.cuda
+def test_baseband_host_copy_does_not_wait_on_a_bank_step(cuda):
+    """The baseband's host copy starts with the audio's right after the
+    step: with the card held busy behind step k, the drain of block k-1
+    returns long before the sleep ends, and that block's host baseband
+    equals its device baseband."""
+    import time
+    from pysdr_tpu_torch.runtime.executive import drain, start_host_copy
+    cfg, _ = _small_bank(cuda)
+    bank = ReceiverBank(cfg, emit_baseband=True, audio_wire="i16",
+                        device=cuda)
+    xbs = [bank.to_device_block(x)
+           for x in _noise_blocks(bank.design.in_block, 2, 74)]
+    cycles_a_ms = _sleep_cycles_a_ms()
+    audio_w = bank.step_device(xbs[0])                          # block k-D
+    bb0 = bank._last_bb
+    first = (start_host_copy(audio_w, bb0), bb0)
+    step_k = bank.step_device(xbs[1])                           # block k
+    torch.cuda._sleep(int(cycles_a_ms * 1500))                  # ~1.5 s busy
+    second = (start_host_copy(step_k, bank._last_bb), bank._last_bb)
+    t0 = time.perf_counter()
+    _, bb = drain(bank, first)
+    waited = time.perf_counter() - t0
+    assert waited < 0.5, waited
+    host_bb = first[0][1]
+    assert bb is bb0 and host_bb.device.type == "cpu" and host_bb.is_pinned()
+    np.testing.assert_array_equal(host_bb.numpy(), bb0.cpu().numpy())
+    drain(bank, second)
+    np.testing.assert_array_equal(second[0][1].numpy(),
+                                  second[1].cpu().numpy())

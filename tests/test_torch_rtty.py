@@ -6,8 +6,11 @@ decode_block call (but where a channel's timing search meets a near-tie
 that float rounding decides, which only the 100-station 48 kHz block
 does, and which the test proves for each such channel); the
 100-station composite at 96 kHz decodes channel
-by channel as the JAX decoder does; and a port decoder continued from a
-JAX decoder's mid-stream state emits what the JAX decoder emits."""
+by channel as the JAX decoder does; a port decoder continued from a
+JAX decoder's mid-stream state emits what the JAX decoder emits; and the
+filterbank over its static buffers, one set a frame count, gives the
+JAX decoder's text, spectrum and tails call by call, with the frame
+counts prepare() works out equal to those a stream gives."""
 
 import copy
 import os
@@ -514,3 +517,149 @@ def test_tied_offsets_take_the_earliest_whatever_the_rounding():
         rtty.RTTYDecoder(d, device="cpu")._decode_channel(sc[:, 0, :], ch)
         assert jch["pos"] == j_pos
         assert ch["pos"] == fpc
+
+
+# ---- the filterbank over static buffers, one set a frame count ----
+
+def noise(n, seed, scale=0.01):
+    rng = np.random.default_rng(seed)
+    return (scale * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+
+
+def frames_seen(dec):
+    """Record the frame count of every filterbank run of `dec` (its
+    static input's length); returns the list."""
+    seen = []
+    body = dec._body
+
+    def recorded(inp, outs):
+        seen.append(rtty.n_frames(inp.shape[0], dec.design))
+        return body(inp, outs)
+    dec._body = recorded
+    return seen
+
+
+# (fs, block): rtty_cq.dat's layout in the CLI (48 kHz baseband, --block
+# 4096), the 100-station layout (96 kHz, 24576), an odd block and one
+# shorter than a bit (12 kHz: bit_len 264, hop 66)
+FRAME_LAYOUTS = {"fixture": (48000.0, 4096), "hundred": (96000.0, 24576),
+                 "odd": (12000.0, 1001), "short": (12000.0, 100)}
+
+
+@pytest.mark.parametrize("layout", [*FRAME_LAYOUTS, "from_jax"])
+def test_prepared_frame_counts_equal_a_streams(layout):
+    """The frame counts prepare() works out from the block length and the
+    carried tail equal those 40 blocks of a stream run through the
+    filterbank; the 100-station layout's are 43 (the first block, no
+    tail), 46 and 47. from_jax: a port decoder carried across from a JAX
+    decoder after two odd blocks prepares from the JAX tail."""
+    fs, block = FRAME_LAYOUTS["odd" if layout == "from_jax" else layout]
+    d = rtty.RTTYDesign(fs=fs)
+    if layout == "from_jax":
+        jdec = jrtty.RTTYDecoder(jrtty.RTTYDesign(fs=fs))
+        for k in range(2):
+            jdec.decode_block(noise(block, k))
+        dec = convert.rtty_state_from_numpy(jdec, "cpu")
+        assert rtty.frame_counts(d, 0, block) != \
+            rtty.frame_counts(d, len(jdec._iq_tail), block)
+    else:
+        dec = rtty.RTTYDecoder(d, device="cpu")
+    want = rtty.frame_counts(
+        d, 0 if dec._iq_tail is None else dec._iq_tail.shape[0], block)
+    assert dec.prepare(block) == want == dec.frame_counts
+    if layout == "hundred":
+        assert want == [43, 46, 47]
+    seen = frames_seen(dec)
+    for k in range(40):
+        dec.decode_block(noise(block, 100 + k))
+    assert sorted(set(seen)) == want
+    assert dec.graph_count == 0
+
+
+def sc_frame_counts(d):
+    """One station in odd 1001-sample blocks: frames 12, 15 and 16."""
+    x = jrtty.synthesize_rtty("CQ CQ DE AA2IL AA2IL", d, carrier_hz=1000.0)
+    return {}, [pk(x[i:i + 1001]) for i in range(0, len(x) - 1001, 1001)], \
+        ("AA2IL",)
+
+
+def sc_short(d):
+    """Blocks of 150 samples, fewer than a bit's 264, from the end of the
+    idle preamble: the first completes no frame, the next 1, then 2 or 3
+    a block, the soft bits accumulating to a character's worth."""
+    x = jrtty.synthesize_rtty("DE AA2IL", d, carrier_hz=-700.0)[
+        4 * d.bits_per_char * d.bit_len:]
+    return {}, [pk(x[i:i + 150]) for i in range(0, len(x) - 150, 150)], \
+        ("AA2IL",)
+
+
+@pytest.mark.parametrize("scenario", [sc_frame_counts, sc_appears,
+                                      sc_expires, sc_short])
+def test_static_buffer_decoder_matches_jax_per_call(scenario):
+    """decode_block over the static buffers against the JAX decoder, call
+    by call: the text, the channels, last_spectrum (the tolerance of
+    test_decoder_matches_jax_call_by_call), the baseband tail (bit-equal)
+    and the soft-bit tail (within SCORE_DRIFT: a soft bit of a channel
+    whose bins hold only the FFTs' rounding, as a phantom channel of a
+    clean synth does, drifts as its scores do); across several frame
+    counts, rescans that add a channel (sc_appears) and expire one
+    (sc_expires), and blocks that complete no frame (sc_short).
+    stage_ms times every block that ran the filterbank."""
+    fs = 12000.0
+    jd = jrtty.RTTYDesign(fs=fs)
+    kw, blocks, expect = scenario(jd)
+    jdec = jrtty.RTTYDecoder(jd, **kw)
+    dec = rtty.RTTYDecoder(rtty.RTTYDesign(fs=fs), device="cpu", **kw)
+    seen = frames_seen(dec)
+    n_ch, text, no_frames = set(), "", 0
+    for k, b in enumerate(blocks):
+        ran = len(seen)
+        want = jdec.decode_block(b)
+        assert dec.decode_block(b) == want, k
+        no_frames += len(seen) == ran
+        text += "".join(want)
+        assert [c["mark_bin"] for c in dec.channels] == \
+            [c["mark_bin"] for c in jdec.channels], k
+        n_ch.add(len(dec.channels))
+        if getattr(jdec, "last_spectrum", None) is not None:
+            np.testing.assert_allclose(dec.last_spectrum,
+                                       jdec.last_spectrum, rtol=1e-4,
+                                       atol=1e-6)
+        np.testing.assert_array_equal(dec._iq_tail.numpy(), jdec._iq_tail)
+        if jdec._soft_tail is None:
+            assert dec._soft_tail is None, k
+        else:
+            assert dec._soft_tail.shape == jdec._soft_tail.shape, k
+            np.testing.assert_allclose(dec._soft_tail.numpy(),
+                                       jdec._soft_tail, rtol=0,
+                                       atol=SCORE_DRIFT, err_msg=str(k))
+    assert all(p in text for p in expect), text
+    assert dec.frame_counts == sorted(set(seen))
+    if scenario is sc_frame_counts:
+        assert dec.frame_counts == [12, 15, 16]
+    if scenario in (sc_appears, sc_expires):
+        assert len(n_ch) >= 2, n_ch
+    if scenario is sc_short:
+        assert no_frames >= 1 and len(set(seen)) >= 2
+    assert dec.stage_blocks == len(seen)
+    assert set(dec.stage_ms) == set(rtty.STAGES)
+    assert all(v >= 0.0 for v in dec.stage_ms.values())
+
+
+def test_unprepared_frame_count_raises():
+    """A block whose frame count the decoder was not prepared for raises
+    before it changes anything: no filterbank run, the same tails, block
+    count and spectrum."""
+    d = rtty.RTTYDesign(fs=12000.0)
+    dec = rtty.RTTYDecoder(d, device="cpu")
+    assert dec.prepare(1001) == [12, 15, 16]
+    dec.decode_block(noise(1001, 1))
+    seen = frames_seen(dec)
+    tail, spec, n = dec._iq_tail.clone(), dec.last_spectrum, dec._n_blocks
+    with pytest.raises(ValueError, match="prepared for"):
+        dec.decode_block(noise(500, 2))
+    assert seen == [] and dec._n_blocks == n and dec.last_spectrum is spec
+    assert torch.equal(dec._iq_tail, tail)
+    dec.decode_block(noise(1001, 3))
+    assert len(seen) == 1

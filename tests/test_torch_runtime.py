@@ -1,11 +1,14 @@
 """The port's runtime on the CPU: the executive's host copies drain
 the same audio and baseband as the serial bank at every pipeline depth,
+each drained baseband carries its events and, for the recorder and the
+BB panes, its host copy (the recorded bytes as before),
 an rtl_tcp server that keeps reconnecting without data ends the read in
 TimeoutError, the probe dumps an rtl_tcp server, and the latency
 analyzer reads the CSV the port's --watchdog-log writes (mirrors of
 tests/test_runtime.py:218-309 and tests/test_rtltcp.py:154-167), and
 the Stopwatch against the JAX package's."""
 
+import os
 import socket
 import threading
 import time
@@ -72,6 +75,75 @@ def test_host_copy_drain_same_audio_at_depths(depth):
     pulled = ex.audio_rings[1].pull(n_blocks * serial.design.out_block)
     np.testing.assert_array_equal(
         pulled, np.concatenate([a[1] for a in ref_audio]))
+
+
+@pytest.mark.parametrize("host_bb", [False, True])
+def test_drained_baseband_carries_its_events_and_host_copy(host_bb):
+    """Each drained entry carries the block's baseband, the events after
+    which it is valid (none on the CPU) and, with host_bb, its host copy,
+    started at dispatch beside the audio's: equal to the serial bank's
+    baseband of that block."""
+    cfg = PipelineConfig(fs_in=512e3, fs_out=48e3, out_block=1024,
+                         foffset_hz=60e3, receivers=(
+                             ReceiverConfig(fc_hz=10e6, mode=Mode.AM),
+                             ReceiverConfig(fc_hz=10.02e6, mode=Mode.USB)))
+    n_blocks = 5
+    serial = ReceiverBank(cfg, emit_baseband=True, device="cpu")
+    src = RampSource()
+    ref = []
+    for _ in range(n_blocks):
+        serial.step(src.read_data(serial.design.in_block))
+        ref.append(serial._last_bb.clone())
+    got = []
+
+    def tap(ex, audio):
+        got.append((ex.drained_bb, ex.drained_bb_ready, ex.drained_bb_host))
+
+    ex = Executive(ReceiverBank(cfg, emit_baseband=True, device="cpu"),
+                   RampSource(), psd_callback=tap, pipeline_depth=2,
+                   host_bb=host_bb)
+    ex.run(n_blocks=n_blocks)
+    ex.stop()
+    assert len(got) == n_blocks
+    for k, (bb, ready, bb_host) in enumerate(got):
+        np.testing.assert_array_equal(bb.numpy(), ref[k].numpy())
+        assert list(ready) == []
+        if host_bb:
+            assert bb_host.device.type == "cpu" and bb_host is not bb
+            np.testing.assert_array_equal(bb_host.numpy(), ref[k].numpy())
+        else:
+            assert bb_host is None
+
+
+def test_recorded_baseband_bytes_as_the_device_baseband_gives(tmp_path):
+    """--save-baseband with --bb: the recorder writes the baseband's host
+    copy that the executive started at dispatch, byte for byte what the
+    drained device baseband gives (as `bb.cpu().numpy()` wrote it), and
+    the BB panes update from it."""
+    from pysdr_tpu_torch.io import datfile
+    a = app.App(app.build_parser().parse_args(
+        ["--device", "cpu", "--fs", "0.512", "--block", "1024", "--blocks",
+         "3", "--save-baseband", "--save-dir", str(tmp_path), "--bb",
+         "--psd-every", "1"]))
+    assert a.ex.host_bb and a.ex.want_bb
+    drained = []
+    hook = a.ex.psd_callback
+
+    def tap(ex, audio):
+        drained.append(ex.drained_bb.clone())
+        hook(ex, audio)
+    a.ex.psd_callback = tap
+    assert a.run() == 0
+    names = [f for f in os.listdir(tmp_path) if f.startswith("baseband")]
+    assert len(names) == 1 and len(drained) == 3
+    with open(tmp_path / names[0], "rb") as f:
+        raw = f.read()
+    hdr_len = int(np.frombuffer(raw[8:12], "<u4")[0])
+    assert raw[:8] == datfile.MAGIC
+    want = b"".join(np.ascontiguousarray(bb.cpu().numpy().T).tobytes()
+                    for bb in drained)
+    assert raw[12 + hdr_len:] == want
+    assert a.display.frames["BB0"].waterfall_u8.shape[1] == 1024
 
 
 class SlowSource(RampSource):
