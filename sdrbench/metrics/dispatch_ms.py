@@ -1,0 +1,8 @@
+"""dispatch_ms (ms, program counter): the executive's stage_ms["dispatch"] over
+the measured window, a block (the blocks its run drained)."""
+
+
+def read(run):
+    if not run.blocks_run:
+        return None
+    return run.stage_ms["dispatch"] / run.blocks_run

@@ -1,0 +1,8 @@
+"""quantize_ms (ms, program counter): the executive's stage_ms["quantize"] over
+the measured window, a block (the blocks its run drained)."""
+
+
+def read(run):
+    if not run.blocks_run:
+        return None
+    return run.stage_ms["quantize"] / run.blocks_run

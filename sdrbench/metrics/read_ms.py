@@ -1,0 +1,8 @@
+"""read_ms (ms, program counter): the executive's stage_ms["read"] over
+the measured window, a block (the blocks its run drained)."""
+
+
+def read(run):
+    if not run.blocks_run:
+        return None
+    return run.stage_ms["read"] / run.blocks_run
