@@ -291,7 +291,7 @@ def build_parser() -> argparse.ArgumentParser:
                     const="/tmp/LOG2.TXT", metavar="PATH",
                     help="write the watchdog latency CSV (reference "
                          "/tmp/LOG2.TXT, watchdog.py:176-227); analyze "
-                         "with `python -m pysdr_tpu.latency PATH`")
+                         "with `python -m pysdr_tpu_torch.latency PATH`")
     ap.add_argument("--internals", type=str, default=None, metavar="NPZ",
                     help="dump filter banks for cross-validation "
                          "(internals.mat harness, receiver.py:864-874)")
@@ -299,9 +299,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print per-block timing vs the frame budget "
                          "(profiler.py:27-46)")
     ap.add_argument("--jax-trace", type=str, default=None, metavar="DIR",
-                    help="capture a jax.profiler trace of the run into "
-                         "DIR (open with TensorBoard / Perfetto; the "
-                         "trace hook points the reference comments out, "
+                    help="write a torch.profiler Chrome trace of the run, "
+                         "DIR/trace_<pid>.json, with the executive's "
+                         "pysdr.<stage>#<block> spans beside the card's "
+                         "kernels (open with Perfetto; the trace hook "
+                         "points the reference comments out, "
                          "pySDR.py:170-171)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the DSP runs (default cuda; never falls "

@@ -20,6 +20,13 @@ Uploads go through pinned host memory with a non_blocking copy. Control
 mutations arrive through a thread-safe queue and are applied between
 blocks as writes into the bank's params; each copies the new params up
 from pageable memory, a sync of its own between blocks.
+
+Each block read gets an id (the source's read order) and a record
+(profiler.BlockSpan: perf_counter_ns marks from its read to its audio's
+push, the take that released its drain);
+the last 4096 drained blocks' records stay in `block_spans`, and
+`stage_ms` sums the stages of the same marks. While a
+torch.profiler records, each stage is also a `pysdr.<stage>#<id>` range.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import numpy as np
 import torch
 
 from pysdr_tpu_torch.ops import cplx
-from pysdr_tpu_torch.runtime.profiler import BlockProfiler
+from pysdr_tpu_torch.runtime.profiler import (BlockProfiler, BlockSpan,
+                                               stage_range)
 from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
 
 # the RF wire's dtype on the device, as upload() moves it
@@ -80,15 +88,23 @@ def start_host_copy(audio_w, bb=None):
     return (host[0] if one else tuple(host)), host_bb, events
 
 
-def drain(bank, entry):
+def drain(bank, entry, span: BlockSpan | None = None):
     """Wait for one block's host copies alone; (host audio complex64
     (n_rx, out_block), the block's baseband on the device or None).
     entry: (start_host_copy's result, the block's baseband from
-    bank.baseband_from_wire, or None)."""
+    bank.baseband_from_wire, or None); span: the block's record, which
+    gets the marks `waited` (the copies' events synchronised) and
+    `decoded` (audio_from_wire done)."""
     (host_audio, _, events), bb = entry
-    for ev in events:
-        ev.synchronize()
-    return bank.audio_from_wire(host_audio), bb
+    span = span or BlockSpan(None)
+    with stage_range("drain_wait", span.id):
+        for ev in events:
+            ev.synchronize()
+    span.waited = time.perf_counter_ns()
+    with stage_range("decode", span.id):
+        audio = bank.audio_from_wire(host_audio)
+    span.decoded = time.perf_counter_ns()
+    return audio, bb
 
 
 class Executive:
@@ -146,6 +162,12 @@ class Executive:
         # and by stop(): after stop() the thread issues nothing more
         self._issue_lock = threading.Lock()
         self.n_blocks = 0
+        # block ids: the next the source's read gets (the reading thread's)
+        # and the next the executive takes (its own)
+        self._next_read = 0
+        self._next_take = 0
+        # the records (BlockSpan) of the last drained blocks, oldest first
+        self.block_spans: deque = deque(maxlen=4096)
         self.last_rf_block: np.ndarray | None = None
         # the drained block's baseband: a device tensor (n_rx, out_block),
         # the events after which it is valid (one a device, [] on the CPU)
@@ -157,9 +179,14 @@ class Executive:
         # (the host's wire quantization) + pin+issue (the copy into pinned
         # memory and the host->device issue), dispatch = device step issue
         # (the block's copy into the step's static input and the graph's
-        # replay), drain = result pull + sinks
+        # replay) and its host copies' start, drain = drain_wait (the host
+        # copies' events) + decode (audio_from_wire); from each drained
+        # block's record (BlockSpan): handoff = pin+issue done to the
+        # executive's take, hold = dispatch done to drain start
         self.stage_ms = {"read": 0.0, "upload": 0.0, "quantize": 0.0,
-                         "pin+issue": 0.0, "dispatch": 0.0, "drain": 0.0}
+                         "pin+issue": 0.0, "dispatch": 0.0, "drain": 0.0,
+                         "handoff": 0.0, "hold": 0.0, "drain_wait": 0.0,
+                         "decode": 0.0}
 
     def stage_report(self) -> dict:
         n = max(1, self.n_blocks)
@@ -207,32 +234,49 @@ class Executive:
         x = x.astype(np.complex64)
         return x.view(np.float32).reshape(-1, 2), x
 
-    def _prepare(self, pair):
-        """Wire quantization + host->device issue for a read pair."""
+    def _read_host(self):
+        """The next block from the source with its record, numbered in
+        read order: (float32 pairs, complex64, BlockSpan) or None at
+        stream end."""
+        span = BlockSpan(self._next_read)
+        span.read0 = time.perf_counter_ns()
+        with stage_range("read", span.id):
+            pair = self._read_host_raw()
+        span.arrival = time.perf_counter_ns()
+        self.stage_ms["read"] += (span.arrival - span.read0) / 1e6
         if pair is None:
             return None
-        t1 = time.perf_counter()
-        q = torch.from_numpy(np.ascontiguousarray(
-            cplx.quantize_host(pair[0], self.wire)))
-        t2 = time.perf_counter()
-        xb = upload(q, self.bank.device)
-        t3 = time.perf_counter()
-        self.stage_ms["quantize"] += (t2 - t1) * 1e3
-        self.stage_ms["pin+issue"] += (t3 - t2) * 1e3
-        self.stage_ms["upload"] += (t3 - t1) * 1e3
-        return xb, pair[1]
+        self._next_read += 1
+        return (*pair, span)
+
+    def _prepare(self, pair):
+        """Wire quantization + host->device issue for a read block:
+        (device block, host complex64, BlockSpan) or None."""
+        if pair is None:
+            return None
+        xp, x, span = pair
+        with stage_range("quantize", span.id):
+            q = torch.from_numpy(np.ascontiguousarray(
+                cplx.quantize_host(xp, self.wire)))
+        span.quantized = time.perf_counter_ns()
+        with stage_range("pin+issue", span.id):
+            xb = upload(q, self.bank.device)
+        span.issued = time.perf_counter_ns()
+        st = self.stage_ms
+        st["quantize"] += (span.quantized - span.arrival) / 1e6
+        st["pin+issue"] += (span.issued - span.quantized) / 1e6
+        st["upload"] += (span.issued - span.arrival) / 1e6
+        return xb, x, span
 
     def _pf_loop(self):
         # each stage_ms key has one writer thread (read, upload, quantize
-        # and pin+issue here when prefetch is on, dispatch and drain on
-        # the executive thread)
+        # and pin+issue here when prefetch is on, the others on the
+        # executive thread)
         while not self._stop.is_set():
             if not self._pf_active.wait(timeout=0.2):
                 continue           # paused between run() calls
-            t0 = time.perf_counter()
             try:
-                pair = self._read_host_raw()
-                self.stage_ms["read"] += (time.perf_counter() - t0) * 1e3
+                pair = self._read_host()
                 with self._issue_lock:
                     if self._stop.is_set():
                         return       # a read that outlasted stop()
@@ -251,11 +295,21 @@ class Executive:
                 return                         # stream end / error
 
     def _read_block(self):
-        """Next (device block, host complex64) or None at stream end."""
+        """Next (device block, host complex64, BlockSpan) or None at
+        stream end; marks the block `taken`."""
         if self._held is not None:
             item, self._held = self._held, None
             return item
-        if self.prefetch:
+        item = self._take() if self.prefetch \
+            else self._prepare(self._read_host())
+        if item is not None:
+            item[2].taken = time.perf_counter_ns()
+            self._next_take = item[2].id + 1
+        return item
+
+    def _take(self):
+        """The prefetch thread's next block, or None at stream end."""
+        with stage_range("wait", self._next_take):
             if self._pf_q is None:
                 self._pf_q = queue.Queue(maxsize=2)
             if (self._pf_thread is None or not self._pf_thread.is_alive()) \
@@ -274,14 +328,10 @@ class Executive:
                     if not self._pf_thread.is_alive():
                         item = None
                         break
-            if item is None and self._pf_error is not None:
-                err, self._pf_error = self._pf_error, None
-                raise err
-            return item
-        t0 = time.perf_counter()
-        pair = self._read_host_raw()
-        self.stage_ms["read"] += (time.perf_counter() - t0) * 1e3
-        return self._prepare(pair)
+        if item is None and self._pf_error is not None:
+            err, self._pf_error = self._pf_error, None
+            raise err
+        return item
 
     # ---- the hot loop ----
 
@@ -303,19 +353,29 @@ class Executive:
         block_budget = d.in_block / d.fs_in
         next_deadline = None
 
-        def finish(entry):
+        def finish(entry, span, released_by):
             nonlocal next_deadline
-            t0 = time.perf_counter()
+            span.released_by = released_by
+            span.drain0 = time.perf_counter_ns()
             # waits for this block's host copies alone
-            audio, self.drained_bb = drain(self.bank, entry)
+            audio, self.drained_bb = drain(self.bank, entry, span)
             (_, self.drained_bb_host, self.drained_bb_ready), _ = entry
-            self.stage_ms["drain"] += (time.perf_counter() - t0) * 1e3
-            for i, ring in enumerate(self.audio_rings):
-                ring.push(audio[i])
-            if self.demod_writer is not None:
-                self.demod_writer.save_data(audio.T)
+            with stage_range("push", span.id):
+                for i, ring in enumerate(self.audio_rings):
+                    ring.push(audio[i])
+                if self.demod_writer is not None:
+                    self.demod_writer.save_data(audio.T)
+            span.pushed = time.perf_counter_ns()
+            st = self.stage_ms
+            st["handoff"] += (span.taken - span.issued) / 1e6
+            st["hold"] += (span.drain0 - span.dispatch1) / 1e6
+            st["drain_wait"] += (span.waited - span.drain0) / 1e6
+            st["decode"] += (span.decoded - span.waited) / 1e6
+            st["drain"] += (span.decoded - span.drain0) / 1e6
+            self.block_spans.append(span)
             if self.psd_callback is not None:
-                self.psd_callback(self, audio)
+                with stage_range("callback", span.id):
+                    self.psd_callback(self, audio)
             self.n_blocks += 1
             if self.realtime:
                 # absolute schedule, debt clamped to one budget
@@ -343,29 +403,34 @@ class Executive:
             while item is not None:
                 self._apply_pending()
                 with self.profiler:
-                    xb, x = item
+                    xb, x, span = item
                     if self.raw_writer is not None:
                         self.raw_writer.save_data(x)
                     self.last_rf_block = x
-                    t0 = time.perf_counter()
-                    audio_w = self.bank.step_device(xb)      # async
-                    bb = self.bank._last_bb if self.want_bb else None
-                    if bb is not None:
-                        bb = self.bank.baseband_from_wire(bb)
-                    # the host copies start now, behind this step only
-                    pending.append((start_host_copy(
-                        audio_w, bb if self.host_bb else None), bb))
+                    span.dispatch0 = time.perf_counter_ns()
+                    with stage_range("dispatch", span.id):
+                        audio_w = self.bank.step_device(xb)  # async
+                        bb = self.bank._last_bb if self.want_bb else None
+                        if bb is not None:
+                            bb = self.bank.baseband_from_wire(bb)
+                        # the host copies start now, behind this step only
+                        pending.append(((start_host_copy(
+                            audio_w, bb if self.host_bb else None), bb),
+                            span))
+                    span.dispatch1 = time.perf_counter_ns()
                     self.stage_ms["dispatch"] += \
-                        (time.perf_counter() - t0) * 1e3
+                        (span.dispatch1 - span.dispatch0) / 1e6
                     # read the next block only if it will be dispatched
                     item = self._read_block() \
                         if wants_more(len(pending)) else None
                     if len(pending) > self.pipeline_depth:
-                        finish(pending.popleft())            # block k-D
+                        # block k-D, released by this take
+                        finish(*pending.popleft(),
+                               item[2].id if item is not None else None)
                 if item is not None and not wants_more(len(pending)):
                     self._held, item = item, None            # deadline hit
             while pending:
-                finish(pending.popleft())
+                finish(*pending.popleft(), None)
             return self.profiler
         finally:
             self._pf_active.clear()

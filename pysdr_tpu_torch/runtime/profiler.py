@@ -12,6 +12,10 @@ torch.profiler trace of the run (`--jax-trace DIR`).
 (CUDA events; torch.profiler's kernel time against the host's wall
 time): the step measurements that chip_smoke.py and pysdr_tpu_torch.bench
 share, the counterpart of the JAX package's probes/profile_device_step.py.
+
+`BlockSpan` is the executive's record of one block's life, always on, and
+`stage_range` puts each of its stages on a recording torch.profiler's
+timeline as a `pysdr.<stage>#<block id>` range.
 """
 
 from __future__ import annotations
@@ -20,6 +24,68 @@ import contextlib
 import os
 import sys
 import time
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# perf_counter_ns marks of a block's life, in order: read0 (the source
+# read begins), arrival (it returned), quantized, issued (pin+issue
+# done), taken (the executive got it), dispatch0/dispatch1 (around the
+# step's issue and its host copies' start), drain0, waited (its copies'
+# events synchronised), decoded (audio_from_wire done), pushed (ring
+# pushes and writers done, before the per-block callback)
+BLOCK_MARKS = ("read0", "arrival", "quantized", "issued", "taken",
+               "dispatch0", "dispatch1", "drain0", "waited", "decoded",
+               "pushed")
+# the stages that tile a block from arrival to pushed: (stage, from, to).
+# control is the take to the dispatch: the block this take released (its
+# drain, its push and the per-block callback psd_callback, the App's
+# display and RTTY taps; with realtime, the pacing sleep), the control
+# commands and the raw writer; hold is the wait of a dispatched block for
+# its drain, which the take of block id + pipeline_depth + 1 starts
+BLOCK_STAGES = (("quantize", "arrival", "quantized"),
+                ("pin+issue", "quantized", "issued"),
+                ("handoff", "issued", "taken"),
+                ("control", "taken", "dispatch0"),
+                ("dispatch", "dispatch0", "dispatch1"),
+                ("hold", "dispatch1", "drain0"),
+                ("drain_wait", "drain0", "waited"),
+                ("decode", "waited", "decoded"),
+                ("push", "decoded", "pushed"))
+
+
+class BlockSpan:
+    """One block's life in the executive: its id (the source's read order,
+    from 0 an executive), a perf_counter_ns mark at each boundary
+    (BLOCK_MARKS), `released_by` (the id of the block whose take started
+    this block's drain, None where no take did: the run's last blocks)."""
+
+    __slots__ = ("id", *BLOCK_MARKS, "released_by")
+
+    def __init__(self, block_id):
+        self.id = block_id
+        self.released_by = None
+
+    def stages_ms(self) -> dict:
+        """{stage: ms} of BLOCK_STAGES, which sum to pushed - arrival."""
+        return {s: (getattr(self, b) - getattr(self, a)) / 1e6
+                for s, a, b in BLOCK_STAGES}
+
+
+_NO_RANGE = contextlib.nullcontext()
+# a FUNCTION-scope range, on the host's timeline alone: the profiler
+# mirrors a record_function (a user annotation) around device work onto
+# the device's timeline, where a trace would count it as device activity
+_RANGE = torch._C._profiler._RecordFunctionFast
+
+
+def stage_range(stage: str, block_id):
+    """The range `pysdr.<stage>#<block_id>` while a torch.profiler records
+    (the profiler's own process-wide flag), else a shared no-op context:
+    with no profiler, no range is entered."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return _RANGE(f"pysdr.{stage}#{block_id}")
 
 
 class BlockProfiler:
@@ -80,13 +146,17 @@ def torch_trace(log_dir: str):
     present) CUDA activity, exported as a Chrome trace
     `log_dir/trace_<pid>.json` (open with Perfetto or chrome://tracing);
     the counterpart of pysdr_tpu's jax_trace (the trace hook points the
-    reference comments out, pySDR.py:170-171)."""
-    import torch
+    reference comments out, pySDR.py:170-171). It records every thread,
+    so the executive's prefetch thread's `pysdr.*` ranges are in it too
+    (a profiler records the thread that started it alone by default)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with torch.profiler.profile(activities=acts,
+                                experimental_config=every_thread) as prof:
         yield prof
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}.json"))
@@ -117,7 +187,6 @@ def timed_steps(bank, xbs):
     raises), after the bank has captured its step for the blocks' wire
     (bank.prepare: the capture itself synchronizes). Returns (a copy of
     each step's output, ms per step)."""
-    import torch
     for xb in xbs:
         bank.prepare(xb.dtype, xb.shape[0])
     outs, step_ms = [], []
@@ -153,7 +222,6 @@ def profile_steps(bank, xbs, out=None) -> dict:
     so a graphed step counts and times the kernels it replays.
     Returns {kernels_per_step, device_busy_ms, host_wall_ms,
     device_idle_share}."""
-    import torch
     out = out or sys.stdout
     for xb in xbs:
         bank.prepare(xb.dtype, xb.shape[0])      # no capture in the window

@@ -80,7 +80,8 @@ def test_helpers_equal_the_root_bench():
 # what the port's _run_e2e adds to the root bench's keys (the relay's
 # keys, first_pull_tax_s and includes_rpc_floor_ms, were never in it)
 NEW_E2E_KEYS = {"check_rx", "tone_db", "correct"}
-NEW_STAGES = {"quantize", "pin+issue"}
+NEW_STAGES = {"quantize", "pin+issue", "handoff", "hold", "drain_wait",
+              "decode"}
 SMALL = ["--fs", "0.512", "--block", "4096"]
 
 

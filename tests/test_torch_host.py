@@ -111,16 +111,31 @@ def test_synth_blocks_bit_equal():
                                       jsrc.read_data(4096))
 
 
+# options whose help names the package's own tools: the port's trace is
+# torch.profiler's and its latency analyzer pysdr_tpu_torch.latency
+OWN_HELP = {"--jax-trace": ("torch.profiler", "DIR/trace_<pid>.json",
+                            "pysdr.<stage>#<block>"),
+            "--watchdog-log": ("python -m pysdr_tpu_torch.latency PATH",)}
+
+
 def _actions(parser):
-    """Every option but --device: its strings and how it parses."""
+    """Every option but --device: its strings and how it parses, and its
+    help unless it names the package's own tools."""
     return [(a.option_strings, a.dest, a.default, a.nargs, a.const,
-             a.type, a.choices, a.metavar, a.help, type(a))
+             a.type, a.choices, a.metavar,
+             None if set(a.option_strings) & set(OWN_HELP) else a.help,
+             type(a))
             for a in parser._actions if "--device" not in a.option_strings]
 
 
 def test_parsers_equal_apart_from_device():
     tp, jp = app.build_parser(), japp.build_parser()
     assert _actions(tp) == _actions(jp)
+    for a in tp._actions:
+        for flag in set(a.option_strings) & set(OWN_HELP):
+            assert all(w in a.help for w in OWN_HELP[flag]), flag
+            assert "jax" not in a.help.replace("--jax-trace", ""), flag
+            assert "pysdr_tpu." not in a.help, flag
     dev = [a for a in tp._actions if a.option_strings == ["--device"]]
     assert len(dev) == 1 and dev[0].default == "cuda"
     assert dev[0].choices == ["cuda", "cpu"]
