@@ -13,10 +13,14 @@ is probe_out/ by default):
     lateness (arrival - due) over the window's blocks at or above the p95
     latency (nearest rank, as latency_p95_ms), the same for the block at
     the median latency and the window's median of each;
-  - for each tail block, which part of its releaser (the block whose take
-    started its drain) made up its excess hold over the window's median:
-    the releaser's lateness at the source, its prepare (quantize +
-    pin+issue) or its hand-off;
+  - for each tail block, what made up its excess over the window's
+    median: for a block a take released, which part of its releaser (the
+    block whose take started its drain) made up its excess hold, the
+    releaser's lateness at the source, its prepare (quantize +
+    pin+issue) or its hand-off; for a block drained while the executive
+    waited for its next block (released_by None), which of its own
+    stages: lateness, prepare, hand-off, control, dispatch, hold or
+    drain (drain_wait + decode + push);
   - the traced stretch's idle gaps by the executive's `pysdr.<stage>`
     range around them (the harness's profiler records the executive's
     thread), and the `pysdr.*` events the profiler put on the device's
@@ -80,7 +84,8 @@ def _ms(ns: float) -> float:
 
 def block_table(run, spans: dict) -> dict:
     """The window's blocks' latency, stages and lateness, the tail's
-    means, the median's, and the tail's hold excess by its releaser."""
+    means, the median's, and each tail block's excess by its releaser's
+    parts or, drained while idle, by its own stages."""
     rows = {}
     for i in run.window_blocks:
         s = spans.get(i)
@@ -107,12 +112,31 @@ def block_table(run, spans: dict) -> dict:
         return {"lateness": r["lateness"],
                 "prepare": r["quantize"] + r["pin+issue"],
                 "handoff": r["handoff"]}
+
+    def own(r):
+        """A block's own stages, where no take released its drain."""
+        return {"lateness": r["lateness"],
+                "prepare": r["quantize"] + r["pin+issue"],
+                "handoff": r["handoff"], "control": r["control"],
+                "dispatch": r["dispatch"], "hold": r["hold"],
+                "drain": r["drain_wait"] + r["decode"] + r["push"]}
     med_part = {k: statistics.median(part(r)[k] for r in rows.values())
                 for k in ("lateness", "prepare", "handoff")}
+    med_own = {k: statistics.median(own(r)[k] for r in rows.values())
+               for k in own(next(iter(rows.values())))}
     causes = collections.Counter()
     excess = []
     for i in tail:
         r = rows[i]
+        if r["released_by"] is None:           # drained while idle
+            ex = {k: v - med_own[k] for k, v in own(r).items()}
+            cause = "own " + max(ex, key=ex.get)
+            causes[cause] += 1
+            excess.append({"block": i, "released_by": None,
+                           "latency_excess": r["latency"] - p50,
+                           **{f"own_{k}_excess": v for k, v in ex.items()},
+                           "cause": cause})
+            continue
         rel = rows.get(r["released_by"])
         if rel is None:
             causes["no releaser in the window"] += 1
@@ -131,7 +155,7 @@ def block_table(run, spans: dict) -> dict:
             "median_block": {"block": med_block,
                              **{k: rows[med_block][k] for k in keys}},
             "window_median": median,
-            "releaser_median": med_part,
+            "releaser_median": med_part, "own_median": med_own,
             "tail_causes": dict(causes), "tail_excess": excess}
 
 
@@ -236,7 +260,8 @@ def traced(cell, seed: int, seconds: float, ranges: bool,
     out = {"cell": cell.name, "seed": seed, "ranges": ranges,
            "correct": harness.correct(res),
            "metrics": {m: harness.reader(m)(run) for m in
-                       ("latency_p95_ms", "hold_ms.live", "handoff_ms.live",
+                       ("latency_p95_ms", "hold_ms.live",
+                        "idle_drain_share.live", "handoff_ms.live",
                         "dispatch_ms.live", "drain_ms.live",
                         "drain_wait_ms.live", "decode_ms.live",
                         "device_busy_ms.live")},
@@ -298,7 +323,8 @@ def main(argv=None) -> int:
             print(f"  median block {json.dumps(t['median_block'])}",
                   flush=True)
             print(f"  tail causes {t['tail_causes']}; releaser median "
-                  f"{json.dumps(t['releaser_median'])}", flush=True)
+                  f"{json.dumps(t['releaser_median'])}; own median "
+                  f"{json.dumps(t['own_median'])}", flush=True)
             print(f"  stretch {r['stretch_wall_ms_a_block']:.3f} ms a block,"
                   f" stages {json.dumps(r['stretch_stage_ms'])}", flush=True)
             print(f"  trace {json.dumps(r['trace_gaps'])}", flush=True)

@@ -10,7 +10,9 @@ prefetch thread, chan64).
 
 Prints the card's name and power limit, then one line a replay a run:
 RF Msamp/s and the per-stage ms a block (read, quantize, pin+issue,
-dispatch, drain). Needs one CUDA card.
+dispatch, drain), and the share of blocks drained while the executive
+waited for its next one (idle_drain; none where the checkout keeps no
+such counter). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def main(argv=None) -> int:
                   f"({e['sps_min'] / 1e6:.1f}-{e['sps_max'] / 1e6:.1f}), "
                   f"{e['block_ms']:.2f} ms a block; read {st['read']} "
                   f"quantize {st['quantize']} pin+issue {st['pin+issue']} "
-                  f"dispatch {st['dispatch']} drain {st['drain']}; "
+                  f"dispatch {st['dispatch']} drain {st['drain']} "
+                  f"idle_drain {st.get('idle_drain', 'none')}; "
                   f"correct {e['correct']}", flush=True)
     return 0
 

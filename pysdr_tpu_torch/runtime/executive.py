@@ -12,10 +12,22 @@ works on the card meanwhile). Right after a block's step is issued, its
 audio wire (the step's static output, rewritten by the next step), and
 its baseband when the caller reads that on the host, start copying into
 pinned host memory with one CUDA event a device (start_host_copy, the
-reference's copy_to_host_async), so the drain of block k-D waits for
-that block's copies alone, not for the steps and uploads queued after
-it; the same events tell a consumer of the baseband on the card (the
-RTTY decoder, on its own stream) when the block's baseband is valid.
+reference's copy_to_host_async), so a block's drain waits for that
+block's copies alone, not for the steps and uploads queued after it;
+the same events tell a consumer of the baseband on the card (the RTTY
+decoder, on its own stream) when the block's baseband is valid.
+
+When a block drains: right after a dispatch, while the next block is
+not ready (the prefetch thread's queue is empty, as in a live stream),
+the executive polls the oldest block's copy events and the queue (every
+IDLE_POLL_S) and drains that block as soon as its copies are done, then
+the next oldest, instead of waiting idle with their audio done. Once the
+next block is ready, or without prefetch (the read runs on the
+executive's thread, which cannot see whether it would wait), block k
+drains at the take of block k + pipeline_depth + 1, so at most
+pipeline_depth + 1 blocks are in flight and their steps overlap on the
+device: a block that comes while the executive polls is taken at once.
+
 Uploads go through pinned host memory with a non_blocking copy. Control
 mutations arrive through a thread-safe queue and are applied between
 blocks as writes into the bank's params; each copies the new params up
@@ -23,7 +35,8 @@ from pageable memory, a sync of its own between blocks.
 
 Each block read gets an id (the source's read order) and a record
 (profiler.BlockSpan: perf_counter_ns marks from its read to its audio's
-push, the take that released its drain);
+push, the take that released its drain, None where the executive
+drained it while waiting for its next block);
 the last 4096 drained blocks' records stay in `block_spans`, and
 `stage_ms` sums the stages of the same marks. While a
 torch.profiler records, each stage is also a `pysdr.<stage>#<id>` range.
@@ -50,6 +63,11 @@ from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
 # the RF wire's dtype on the device, as upload() moves it
 WIRE_TORCH_DTYPES = {"f32": torch.float32, "i16": torch.int16,
                      "i8": torch.int8}
+# how often the executive, its next block not yet ready, looks at the
+# oldest block's copy events and at the prefetch queue: a step and its
+# copies take about half a millisecond on an H100 (a host whose timer
+# is coarser sleeps longer: about 1.1 ms on the H100's host)
+IDLE_POLL_S = 1e-4
 
 
 def upload(q: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -122,7 +140,8 @@ class Executive:
         source: anything with read_data(n) (DatReader / SynthSource) or
         read_packed(n);
         wire: "f32" | "i16" | "i8" RF format across host->device;
-        pipeline_depth: device blocks in flight before the oldest drains;
+        pipeline_depth: device blocks in flight before the oldest drains
+        when the next block is ready (the module's docstring);
         prefetch: read + quantize + upload the next blocks on a thread;
         want_bb: carry each block's baseband (bank._last_bb) to the
         drain; host_bb: copy it to the host too, beside the audio."""
@@ -182,11 +201,13 @@ class Executive:
         # replay) and its host copies' start, drain = drain_wait (the host
         # copies' events) + decode (audio_from_wire); from each drained
         # block's record (BlockSpan): handoff = pin+issue done to the
-        # executive's take, hold = dispatch done to drain start
+        # executive's take, hold = dispatch done to drain start; and
+        # idle_drain, a count: the blocks drained while the executive
+        # waited for its next block (so stage_report gives their share)
         self.stage_ms = {"read": 0.0, "upload": 0.0, "quantize": 0.0,
                          "pin+issue": 0.0, "dispatch": 0.0, "drain": 0.0,
                          "handoff": 0.0, "hold": 0.0, "drain_wait": 0.0,
-                         "decode": 0.0}
+                         "decode": 0.0, "idle_drain": 0.0}
 
     def stage_report(self) -> dict:
         n = max(1, self.n_blocks)
@@ -333,6 +354,16 @@ class Executive:
             raise err
         return item
 
+    def _copies_first(self, events) -> bool:
+        """Wait for a block's copy events (True) or for an item in the
+        prefetch queue, its next block or the stream's end (False),
+        whichever comes first; both are polled every IDLE_POLL_S."""
+        while self._pf_q.empty():
+            if all(ev.query() for ev in events):
+                return True
+            time.sleep(IDLE_POLL_S)
+        return False
+
     # ---- the hot loop ----
 
     def prepare(self):
@@ -420,11 +451,20 @@ class Executive:
                     span.dispatch1 = time.perf_counter_ns()
                     self.stage_ms["dispatch"] += \
                         (span.dispatch1 - span.dispatch0) / 1e6
+                    # while the next block is not here (the prefetch
+                    # queue holds neither it nor the stream's end), drain
+                    # the oldest blocks in flight as their copies finish,
+                    # not at a take pipeline_depth + 1 blocks later
+                    while pending and self.prefetch and \
+                            self._copies_first(pending[0][0][0][2]):
+                        finish(*pending.popleft(), None)
+                        self.stage_ms["idle_drain"] += 1
                     # read the next block only if it will be dispatched
                     item = self._read_block() \
                         if wants_more(len(pending)) else None
                     if len(pending) > self.pipeline_depth:
-                        # block k-D, released by this take
+                        # the next block was ready: block k-D,
+                        # released by this take
                         finish(*pending.popleft(),
                                item[2].id if item is not None else None)
                 if item is not None and not wants_more(len(pending)):

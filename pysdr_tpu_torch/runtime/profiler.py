@@ -38,11 +38,16 @@ BLOCK_MARKS = ("read0", "arrival", "quantized", "issued", "taken",
                "dispatch0", "dispatch1", "drain0", "waited", "decoded",
                "pushed")
 # the stages that tile a block from arrival to pushed: (stage, from, to).
-# control is the take to the dispatch: the block this take released (its
-# drain, its push and the per-block callback psd_callback, the App's
-# display and RTTY taps; with realtime, the pacing sleep), the control
-# commands and the raw writer; hold is the wait of a dispatched block for
-# its drain, which the take of block id + pipeline_depth + 1 starts
+# control is the take to the dispatch: the control commands, the raw
+# writer and, where this take released one, the released block's drain,
+# push and per-block callback (psd_callback, the App's display and RTTY
+# taps; with realtime, the pacing sleep); hold is the wait of a
+# dispatched block for its drain. While the executive's next block is
+# not ready (the prefetch queue empty, as in a live stream), a block
+# drains as soon as the executive's poll finds its copies done (its hold
+# is that wait, its callback runs in the executive's idle time); once
+# the next block is ready, or without prefetch, the take of block id +
+# pipeline_depth + 1 starts it
 BLOCK_STAGES = (("quantize", "arrival", "quantized"),
                 ("pin+issue", "quantized", "issued"),
                 ("handoff", "issued", "taken"),
@@ -58,7 +63,8 @@ class BlockSpan:
     """One block's life in the executive: its id (the source's read order,
     from 0 an executive), a perf_counter_ns mark at each boundary
     (BLOCK_MARKS), `released_by` (the id of the block whose take started
-    this block's drain, None where no take did: the run's last blocks)."""
+    this block's drain, None where no take did: a block drained while the
+    executive waited for its next block, and the run's last blocks)."""
 
     __slots__ = ("id", *BLOCK_MARKS, "released_by")
 

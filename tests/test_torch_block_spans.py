@@ -1,12 +1,14 @@
 """The executive's per-block records on the CPU: each drained block's
 BlockSpan carries the source's read order as its id, marks in order that
-tile the block from arrival to pushed, the take that released its drain,
+tile the block from arrival to pushed, the take that released its drain
+(none for a block drained while the executive waited for its next one),
 and the counters of stage_ms are the sums of the records; under a
 torch.profiler every stage is a `pysdr.<stage>#<id>` range, and with no
 profiler no range is entered."""
 
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -14,11 +16,11 @@ import pytest
 import torch
 
 from pysdr_tpu_torch.config import PipelineConfig, ReceiverConfig
-from pysdr_tpu_torch.io.synth import SignalSpec, SynthSource
 from pysdr_tpu_torch.models.receiver import ReceiverBank
 from pysdr_tpu_torch.runtime import profiler
 from pysdr_tpu_torch.runtime.executive import Executive
 from pysdr_tpu_torch.tables import Mode
+from tests.paced import PacedSynth
 
 torch.set_num_threads(1)
 
@@ -31,39 +33,16 @@ RECORD_KEYS = ("quantize", "pin+issue", "handoff", "dispatch", "hold",
                "drain_wait", "decode")
 
 
-class PacedSynth:
-    """A SynthSource read at its own sample rate: block i is handed out
-    no earlier than (i + 1) block periods after the first read, as a
-    radio hands them; the stream ends after `n` blocks."""
-
-    def __init__(self, fs: float, n: int):
-        self.inner = SynthSource([SignalSpec(60e3, "am", 0.3, 400.0)], fs,
-                                 noise_rms=0.01)
-        self.fs, self.n = fs, n
-        self.t0 = None
-        self.handed: list[float] = []
-
-    def read_data(self, n, loop=False):
-        if self.t0 is None:
-            self.t0 = time.perf_counter()
-        i = len(self.handed)
-        if i >= self.n:
-            return np.zeros(0, np.complex64)
-        wait = self.t0 + (i + 1) * n / self.fs - time.perf_counter()
-        if wait > 0:
-            time.sleep(wait)
-        x = self.inner.read_data(n)
-        self.handed.append(time.perf_counter())
-        return x
-
-
-def _live_run(n, depth, prefetch):
+def _live_run(n, depth, prefetch, gate=False):
     delivered = []
+    done = [threading.Event() for _ in range(n)] if gate else None
 
     def tap(ex, audio):
         delivered.append((ex.block_spans[-1].id, time.perf_counter_ns()))
+        if done is not None:
+            done[delivered[-1][0]].set()
 
-    src = PacedSynth(CFG.fs_in, n)
+    src = PacedSynth(CFG.fs_in, n, gate=done)
     ex = Executive(ReceiverBank(CFG, device="cpu"), src, psd_callback=tap,
                    loop_source=False, pipeline_depth=depth,
                    prefetch=prefetch)
@@ -77,12 +56,16 @@ def _live_run(n, depth, prefetch):
 def test_live_blocks_carry_records_that_tile_them(depth, prefetch):
     """A live-paced run to the stream's end: every delivered block has a
     record whose id is its delivery order and the source's read order;
-    its marks are in order and its stages tile arrival..pushed; the take
-    of block id + depth + 1 released each drain in the steady state; each
+    its marks are in order and its stages tile arrival..pushed; each
     counter of stage_ms is the sum over the records, and drain is
-    drain_wait + decode."""
+    drain_wait + decode. With prefetch, where the next block is not
+    ready while a block is in flight (the source gated on the last
+    block's delivery), each block drains before the take of block id + 1,
+    no take released it and idle_drain counts every block; without, the
+    take of block id + depth + 1 released each drain in the steady
+    state."""
     n = 16
-    ex, src, delivered = _live_run(n, depth, prefetch)
+    ex, src, delivered = _live_run(n, depth, prefetch, gate=prefetch)
     spans = list(ex.block_spans)
     assert [i for i, _ in delivered] == list(range(n))
     assert [s.id for s in spans] == list(range(n))
@@ -98,14 +81,23 @@ def test_live_blocks_carry_records_that_tile_them(depth, prefetch):
         assert min(st.values()) >= 0.0
         assert sum(st.values()) == pytest.approx(
             (s.pushed - s.arrival) / 1e6, abs=1e-6)
-        want = s.id + depth + 1
-        assert s.released_by == (want if want < n else None), s.id
-    steady = [s for s in spans if s.released_by is not None]
-    assert len(steady) == n - depth - 1
-    # the drain starts at the take of its releaser
-    for s in steady:
-        assert s.drain0 >= spans[s.released_by].taken
+        if prefetch:
+            assert s.released_by is None, s.id
+            if s.id + 1 < n:
+                assert s.pushed <= spans[s.id + 1].taken, s.id
+        else:
+            want = s.id + depth + 1
+            assert s.released_by == (want if want < n else None), s.id
     stage = ex.stage_ms
+    if prefetch:
+        assert stage["idle_drain"] == n
+    else:
+        assert stage["idle_drain"] == 0
+        steady = [s for s in spans if s.released_by is not None]
+        assert len(steady) == n - depth - 1
+        # the drain starts at the take of its releaser
+        for s in steady:
+            assert s.drain0 >= spans[s.released_by].taken
     for k in RECORD_KEYS:
         assert stage[k] == pytest.approx(
             sum(s.stages_ms()[k] for s in spans), rel=1e-9, abs=1e-9), k
