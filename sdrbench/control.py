@@ -2,6 +2,9 @@
 program's place with the operands of its matrix products rounded to TF32
 (the precision below the float32 the configurations state), judged by
 the same numbers and limits as a run. It has to come out not correct.
+For a chain with a tap (harness.py), the chain's reference output under
+TF32, from the stream's start, stands in for the tap's output too, and
+its own numbers are read beside the audio's.
 
     python3 sdrbench/control.py --workload <cell> --seeds 1 2 3 \\
         --blocks <blocks a window delivers>
@@ -37,15 +40,22 @@ def readings(c: harness.Cell, seed: int, n_blocks: int, device) -> dict:
                                tr["block"])
     keeper = harness.Keeper(tr["compare_blocks"], seed)
     warm = int(tr["warm_blocks"])
-    for i in range(warm, warm + n_blocks):
+    window = range(warm, warm + n_blocks)
+    for i in window:
         keeper.offer(i, None)
+    tf32 = reference.Arith(tf32=True)
     blocks = {}
     for i in keeper.blocks():
-        audio, _ = harness.reference_audio(
-            chain, raw, fmt, tr["wire"], i, dev,
-            reference.Arith(tf32=True))
+        audio, _ = harness.reference_audio(chain, raw, fmt, tr["wire"], i,
+                                           dev, tf32)
         blocks[i] = reference.audio_wire(audio, tr["audio_wire"])
-    return harness.compare(c, chain, raw, blocks, dev, log=lambda *a: None)
+    outputs = None
+    if harness.has_tap(chain):
+        ctl = harness.reference_outputs(chain, raw, fmt, tr["wire"],
+                                        window[-1], dev, tf32)
+        outputs = {i: ctl[i] for i in harness.settled(chain, window)}
+    return harness.compare(c, chain, raw, blocks, dev, log=lambda *a: None,
+                           outputs=outputs)
 
 
 def main(argv=None) -> int:

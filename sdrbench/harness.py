@@ -11,21 +11,49 @@ reference chain's kind and the scene's station kinds by name
 (registry.py), so a new cell, mix, format, chain or metric is new files
 and new BENCHMARK.json entries.
 
-A run:
+A run (run.py starts its process with one OpenMP and one MKL thread):
   1. set-up: makes the RF scene on the device from the seed and writes it
      once as a capture under TMPDIR; builds `pysdr_tpu_torch.app.App` from
      the configuration's and the traffic's argv with `--replay`; attaches
      its own source wrapper (counts reads; in an open loop, paces them),
-     a wrapper on the executive's per-block callback (the time each
-     block's audio reached the audio rings, and a seeded sample of the
-     audio), and host spans around the calls into the program; captures
-     the step and runs the warm-up blocks;
+     the chain's tap, if it has one (below), a wrapper on the executive's
+     per-block callback (the time each block's output was delivered, and
+     a seeded sample of the audio), and host spans around the calls into
+     the program; captures the step and runs the warm-up blocks;
   2. the measured window, `--seconds` long, driven through App.ex.run;
   3. with `--trace 1`, a profiled stretch of a few blocks after it;
   4. the program stopped and freed, then the reference over the sampled
      blocks, and the comparison that decides `correct`;
   5. the result: info lines, then on stderr each compared number beside
      its limit, then on stdout one JSON line.
+
+A block is delivered when its output has reached its user: its audio
+pushed into the audio rings and, where the App runs a per-block callback
+of its own (the display, the RTTY decoder), that callback returned.
+Without one, delivery is the audio's arrival at the rings.
+
+The tap, an optional part of a chain's contract (reference.chain_of),
+lets a chain check and time the App's own per-block output other than
+the bank's audio, such as a decoder's text. A chain with a tap has:
+  - `attach(app)`: called once, after the App is built and before its
+    step is captured; wraps what it reads in the App and returns a `Tap`,
+    which records that output, host values, under the index of the block
+    being delivered (every block, warm-up included), and gives cumulative
+    counters `{name: number}`. The harness reads the counters where it
+    reads the executive's stage_ms and puts the difference in
+    `Run.tap_counters`, for the metric readers;
+  - `output(x, arith)`: the reference's output `{block: output}` of every
+    whole block of x, the RF wire the program saw from the stream's start
+    (block 0), under `arith`, so that state kept across blocks (a
+    decoder's detection, shift) starts where the program's did; and
+    `settle_blocks` (default 0), the first block compared;
+  - `output_measures(prog, ref)`: the chain's own compared numbers
+    `{name: value}` over the window's blocks from `settle_blocks` on, the
+    program's output (None for a block it gave none) against the
+    reference's. `compare` merges them with the audio's numbers, so a
+    checks file names them with limits and they decide `correct`;
+    control.py computes them with the reference's output under TF32 in
+    the program's place.
 """
 
 from __future__ import annotations
@@ -185,27 +213,75 @@ class Keeper:
         return dict(sorted(out.items()))
 
 
-class Delivery:
-    """Wraps the executive's per-block callback (App's own, if any, still
-    runs): the time each block's audio reached the audio rings, and the
-    sampled audio of the window's blocks. The executive pushes a block
-    into the rings and then calls the callback, in block order."""
+class Tap:
+    """The base of a chain's tap: the program's per-block output other
+    than the bank's audio, {delivery index: output}, and its cumulative
+    counters. Delivery sets `block` to the index of the block being
+    delivered before the App's per-block callback runs, so what the
+    chain's wrappers `record` during it lands under that block."""
 
-    def __init__(self, ex, keeper: Keeper):
+    def __init__(self):
+        self.block = -1
+        self.outputs: dict = {}
+
+    def record(self, out) -> None:
+        self.outputs[self.block] = out
+
+    def counters(self) -> dict:
+        return {}
+
+
+def has_tap(chain) -> bool:
+    return hasattr(chain, "attach")
+
+
+def tap_counters(tap: Tap | None) -> dict:
+    return {} if tap is None else dict(tap.counters())
+
+
+def settled(chain, blocks) -> list:
+    """The blocks whose tap output is compared: those from the chain's
+    `settle_blocks` on."""
+    first = getattr(chain, "settle_blocks", 0)
+    return [i for i in blocks if i >= first]
+
+
+class Delivery:
+    """Wraps the executive's per-block callback: the time each block was
+    delivered, and the sampled audio of the window's blocks. The executive
+    pushes a block into the rings and then calls the callback, in block
+    order. Without a callback of the App's own, the block is delivered at
+    that call, its audio's arrival at the rings; with one, when the App's
+    callback returns, and a chain's `tap` learns the block's index
+    first."""
+
+    def __init__(self, ex, keeper: Keeper, tap: Tap | None = None):
         self.inner = ex.psd_callback
+        if tap is not None and self.inner is None:
+            raise RuntimeError("the chain has a tap, but the App runs no "
+                               "per-block callback for it to read")
         self.keeper = keeper
+        self.tap = tap
         self.times: list[float] = []
         self.in_window = lambda i, t: False
-        ex.psd_callback = self
+        ex.psd_callback = self.rings if self.inner is None else self.hooked
 
-    def __call__(self, ex, audio):
+    def rings(self, ex, audio):
         t = time.perf_counter()
         i = len(self.times)
         self.times.append(t)
         if self.in_window(i, t):
             self.keeper.offer(i, audio)
-        if self.inner is not None:
-            self.inner(ex, audio)
+
+    def hooked(self, ex, audio):
+        t = time.perf_counter()
+        i = len(self.times)
+        if self.in_window(i, t):
+            self.keeper.offer(i, audio)
+        if self.tap is not None:
+            self.tap.block = i
+        self.inner(ex, audio)
+        self.times.append(time.perf_counter())
 
 
 def attach_spans(app):
@@ -254,6 +330,8 @@ class Run:
     host: dict                     # host_use over those blocks
     trace_blocks: int              # blocks of the traced stretch
     trace: object | None           # tracing.Trace of the stretch
+    # the chain's tap's counters over those blocks; {} without a tap
+    tap_counters: dict = dataclasses.field(default_factory=dict)
 
 
 def app_argv(cfg: dict, tr: dict, path: str, device: str) -> list[str]:
@@ -328,7 +406,8 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
                      tr["rate"] if open_loop else None)
         ex.source = src
         keeper = Keeper(tr["compare_blocks"], seed)
-        dl = Delivery(ex, keeper)
+        tap = chain.attach(app) if has_tap(chain) else None
+        dl = Delivery(ex, keeper, tap)
         undo = attach_spans(app)
         if fault is not None:
             fault(app)
@@ -342,6 +421,7 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
             window = range(warm, warm + k)
             dl.in_window = lambda i, t: i in window
             stage0, n0 = dict(ex.stage_ms), ex.n_blocks
+            tap0 = tap_counters(tap)
             ru0 = resource.getrusage(resource.RUSAGE_SELF)
             # timed blocks drain in the steady state: depth + 1 past them
             ex.run(n_blocks=warm + k + depth + 1)
@@ -351,6 +431,7 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
         else:
             ex.run(n_blocks=warm)
             stage0, n0 = dict(ex.stage_ms), ex.n_blocks
+            tap0 = tap_counters(tap)
             ru0 = resource.getrusage(resource.RUSAGE_SELF)
             t_open = time.perf_counter()
             t_close = t_open + seconds
@@ -361,6 +442,7 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
         host = host_use(ru0, resource.getrusage(resource.RUSAGE_SELF),
                         blocks_run)
         stage = {k: ex.stage_ms[k] - stage0[k] for k in ex.stage_ms}
+        tapc = {k: v - tap0.get(k, 0) for k, v in tap_counters(tap).items()}
         peak = (torch.cuda.max_memory_allocated(dev)
                 if dev.type == "cuda" else 0)
         trace_data = None
@@ -375,7 +457,16 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
                 ex.run(n_blocks=n1)
             trace_data = tracing.stretch(stretch, dev)
         source_kind = type(src.inner).__name__
+        if open_loop:
+            shown = list(window)
+        else:
+            shown = [i for i, t in enumerate(dl.times)
+                     if t_open < t <= t_close]
+        outputs = None if tap is None else {
+            i: tap.outputs.get(i) for i in settled(chain, shown)}
         app.stop_services()
+        # nothing of the program stays alive for the reference
+        dl.inner = dl.tap = tap = None
         del app, ex, bank
     finally:
         if undo is not None:
@@ -390,7 +481,8 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
               delivered=list(dl.times), due=due, window_blocks=window,
               blocks_run=blocks_run, stage_ms=stage,
               launches=chain.launches(tr["wire"]), host=host,
-              trace_blocks=int(tr["trace_blocks"]), trace=trace_data)
+              trace_blocks=int(tr["trace_blocks"]), trace=trace_data,
+              tap_counters=tapc)
     if open_loop:
         attempted = len(window)
         failed = sum(1 for i in window if i >= len(dl.times))
@@ -400,7 +492,7 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
             f"{1e3 * statistics.median(lat):.3f} ms, max "
             f"{1e3 * max(lat):.3f} ms")
     else:
-        attempted = sum(1 for t in dl.times if t_open < t <= t_close)
+        attempted = len(shown)
         failed = 0
     log("setup: " + ", ".join(
         f"{k} {b - a:.3f} s" for (_, a), (k, b) in
@@ -410,10 +502,12 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
            else "Python reader)"))
     log(f"window, a block of {blocks_run}: stages ms " + ", ".join(
         f"{k} {v / max(1, blocks_run):.3f}" for k, v in stage.items())
-        + "; host " + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+        + "; host " + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+        + "".join(f"; tap {k} {v / max(1, blocks_run):.3f}"
+                  for k, v in tapc.items()))
 
     sample = keeper.blocks()
-    checks = compare(c, chain, raw, sample, dev, log=log)
+    checks = compare(c, chain, raw, sample, dev, log=log, outputs=outputs)
     return {"run": run, "attempted": attempted, "failed": failed,
             "compared": len(sample), "checks": checks,
             "memory_peak_bytes": int(peak)}
@@ -421,24 +515,37 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool,
 
 # ------------------------------------------------------- correctness
 
+def rf_tensor(raw, fmt: dict, wire: str, start: int, n: int, dev):
+    """Samples [start, start + n) of the looped capture as the program
+    computes on them (reference.rf_wire), complex64 on `dev`."""
+    import torch
+
+    from sdrbench import reference, scene
+    x = reference.rf_wire(scene.span(raw, fmt, start, n), fmt, wire)
+    return torch.view_as_complex(torch.from_numpy(np.ascontiguousarray(x))
+                                 .to(dev))
+
+
 def reference_audio(chain, raw, fmt: dict, wire: str, block: int,
                     dev, arith):
     """The reference's decoded audio of program block `block`, complex64
     numpy (R, out_block), and whether every latch was settled."""
-    import torch
-
-    from sdrbench import reference, scene
     warm = math.ceil(WARM_AUDIO_S * chain.fs_out / chain.out_block)
     b0 = max(0, block - warm)
-    n = (block - b0 + 1) * chain.in_block
-    x = reference.rf_wire(scene.span(raw, fmt, b0 * chain.in_block, n),
-                          fmt, wire)
-    xt = torch.view_as_complex(torch.from_numpy(np.ascontiguousarray(x))
-                               .to(dev))
+    xt = rf_tensor(raw, fmt, wire, b0 * chain.in_block,
+                   (block - b0 + 1) * chain.in_block, dev)
     audio, settled = chain.audio(xt, b0, arith,
                                  check_from=(block - b0) * chain.out_block
                                  if b0 > 0 else 0)
     return audio[:, -chain.out_block:], settled
+
+
+def reference_outputs(chain, raw, fmt: dict, wire: str, last: int, dev,
+                      arith) -> dict:
+    """A tapped chain's reference output {block: output} of blocks 0 to
+    `last`, computed from the stream's start."""
+    return chain.output(rf_tensor(raw, fmt, wire, 0,
+                                  (last + 1) * chain.in_block, dev), arith)
 
 
 def measures(prog: dict, refd: dict) -> dict:
@@ -467,9 +574,11 @@ def measures(prog: dict, refd: dict) -> dict:
 
 
 def compare(c: Cell, chain, raw, blocks: dict, dev, log=print,
-            arith=None) -> dict:
+            arith=None, outputs: dict | None = None) -> dict:
     """{check: (value, limit)} for the cell's checks; `blocks` the
-    program's audio by block."""
+    program's audio by block, `outputs` a tapped chain's output by block
+    (the window's, from its settle_blocks on). A check whose number could
+    not be worked out (no output to compare) reads None."""
     import torch
 
     from sdrbench import reference, scene
@@ -487,12 +596,19 @@ def compare(c: Cell, chain, raw, blocks: dict, dev, log=print,
     log(f"compared blocks: {sorted(blocks)}")
     got = measures(blocks, refd)
     got["latch_unsettled"] = unsettled
-    return {k: (got[k], lim) for k, lim in c.checks.items()}
+    if outputs:
+        ref = reference_outputs(chain, raw, fmt, tr["wire"], max(outputs),
+                                dev, arith)
+        got.update(chain.output_measures(outputs,
+                                         {i: ref[i] for i in outputs}))
+        log(f"compared outputs: {len(outputs)} blocks, "
+            f"{min(outputs)} to {max(outputs)}")
+    return {k: (got.get(k), lim) for k, lim in c.checks.items()}
 
 
 def passed(checks: dict) -> bool:
-    """Each compared number at or under its limit."""
-    return all(v <= lim for v, lim in checks.values())
+    """Each compared number worked out and at or under its limit."""
+    return all(v is not None and v <= lim for v, lim in checks.values())
 
 
 def correct(res: dict) -> bool:

@@ -1,8 +1,10 @@
-"""latency_p95_ms (ms, host clock): for every block due in the window,
-the time its audio reached the audio rings minus the due time of its
-last RF sample; the 95th percentile (nearest rank) over all of them. A
-block that never arrived reads as missing every limit (no value; the run
-counts it as failed)."""
+"""latency_p95_ms (ms, host clock; read per layer as latency_p95_ms.live,
+the host's stalls setting the tail): for every block due in the window,
+the time its output was delivered (its audio at the audio rings and,
+where the App runs per-block taps such as --rtty, their output) minus
+the due time of its last RF sample; the 95th percentile (nearest rank)
+over all of them. A block that never arrived reads as missing every
+limit (no value; the run counts it as failed)."""
 
 import math
 

@@ -387,5 +387,20 @@ def chain_of(spec: dict, fc_hz: float, block: int):
     `in_block`, `out_block` (the program's block sizes, which the
     harness holds it to), `audio(x, block0, arith, check_from)` and
     `launches(wire)`, one step's hand-kernel launches for the
-    rooflines."""
+    rooflines.
+
+    A chain may also have a tap, for the App's own per-block output other
+    than the audio, such as a decoder's text (harness.py's docstring
+    gives the whole contract; without these the chain runs as above):
+    `attach(app)`, called before the step is captured, returns a
+    `harness.Tap` that records that output by delivered block, warm-up
+    included, and whose `counters()` the harness reads at the window's
+    ends into `Run.tap_counters`; `output(x, arith)`, the reference's
+    output of every block of x, the RF wire from the stream's start
+    (block 0), so that state kept across blocks is the reference's own
+    from the start; `settle_blocks`, the first block compared (default
+    0); and `output_measures(prog, ref)`, the chain's own compared
+    numbers, which a checks file names with their limits beside the
+    audio's and which control.py reads with `output` under TF32 in the
+    program's place."""
     return registry.module("chains", spec["kind"]).build(spec, fc_hz, block)

@@ -21,6 +21,14 @@ if sys.path and os.path.abspath(sys.path[0] or ".") == _HERE:
 elif ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+# The program runs with one OpenMP and one MKL thread. With PyTorch's
+# default, a pool of one thread a core, the pool spins between the
+# executive's small host copies (50-67 ms of CPU a 21 ms block on an
+# H100's 8-core host) and a live block's latency swings with it. Set
+# before numpy and torch are imported, which read it once.
+os.environ["OMP_NUM_THREADS"] = "1"
+os.environ["MKL_NUM_THREADS"] = "1"
+
 from sdrbench import harness  # noqa: E402
 
 if __name__ == "__main__":

@@ -114,7 +114,7 @@ def test_benchmark_json_keeps_the_contract():
     for m in b["end_to_end"] + b["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     e2e = {m["name"] for m in b["end_to_end"]}
-    assert e2e == {"latency_p95_ms", "setup_s"}
+    assert e2e == {"latency_p50_ms", "setup_s"}
     for m in b["per_layer"]:
         assert m["moves"] in e2e
         for w in m["workloads"]:        # each cell reports what it moves
@@ -184,6 +184,26 @@ def test_latency_p95_is_over_every_due_block():
     run = _run(loop="open", due=due, delivered=delivered[:40],
                window_blocks=range(0, n))
     assert harness.reader("latency_p95_ms")(run) is None
+
+
+def test_latency_p50_is_the_median_of_every_due_block():
+    n = 100
+    due = [float(i) for i in range(n)]
+    delivered = [d + 0.004 for d in due]
+    for i in range(0, 51):                       # 51 slow: the 50th is slow
+        delivered[i] = due[i] + 0.020
+    run = _run(loop="open", due=due, delivered=delivered,
+               window_blocks=range(0, n))
+    assert harness.reader("latency_p50_ms")(run) == pytest.approx(20.0)
+    delivered[0] = due[0] + 0.004               # 50 slow: the 50th is fast
+    assert harness.reader("latency_p50_ms")(run) == pytest.approx(4.0)
+    # blocks that never came count as late: over half lose the median
+    run = _run(loop="open", due=due, delivered=delivered[:49],
+               window_blocks=range(0, n))
+    assert harness.reader("latency_p50_ms")(run) is None
+    run = _run(loop="open", due=due, delivered=delivered[:60],
+               window_blocks=range(0, n))
+    assert harness.reader("latency_p50_ms")(run) == pytest.approx(20.0)
 
 
 def test_keeper_sample_depends_on_the_seed_and_count_alone():
@@ -266,4 +286,5 @@ def test_no_result_without_a_card_or_without_the_program(tmp_path):
 def test_latency_reader_handles_an_empty_window():
     run = _run(loop="open", due=[], delivered=[], window_blocks=range(0))
     assert harness.reader("latency_p95_ms")(run) is None
+    assert harness.reader("latency_p50_ms")(run) is None
     assert not math.isnan(harness.reader("setup_s")(run))
