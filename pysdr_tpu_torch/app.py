@@ -781,7 +781,8 @@ class App:
         display (AF panes every block the decimation keeps, the RF pane
         every --psd-every blocks, the BB panes), and the RTTY decoder fed
         the RX's baseband as the device tensor the executive carried with
-        this block, with the events after which it is valid. The
+        this block, with the events after which it is valid and the
+        block's id (the record the executive drained last). The
         baseband's host copy, which the executive started right after the
         step, feeds the recorder and the BB panes."""
         if self.memmon is not None and ex.n_blocks % 32 == 0:
@@ -809,11 +810,17 @@ class App:
             if need_bb_display:
                 disp.update_bb(bb_host)
         if self.rtty is not None and bb is not None:
+            # the drained block's id keys the decoder's profiler ranges
+            block_id = ex.block_spans[-1].id if ex.block_spans else None
+            lines = []
             for i, txt in enumerate(self.rtty.decode_block(
-                    bb[self.rtty_rx], ready=ex.drained_bb_ready)):
+                    bb[self.rtty_rx], ready=ex.drained_bb_ready,
+                    block_id=block_id)):
                 if txt:
                     self.rtty_text.append(txt)
-                    print(f"RTTY ch{i}: {txt}", flush=True)
+                    lines.append(f"RTTY ch{i}: {txt}")
+            if lines:           # one write and flush a block
+                print("\n".join(lines), flush=True)
             sp = self.rtty.last_spectrum
             if sp is not None:
                 db = 20.0 * np.log10(np.maximum(sp, 1e-9))

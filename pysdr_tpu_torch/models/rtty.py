@@ -44,6 +44,7 @@ import torch
 
 from pysdr_tpu_torch.device import resolve_device
 from pysdr_tpu_torch.models import graphstep
+from pysdr_tpu_torch.runtime.profiler import stage_range
 
 # ITA2 / Baudot code tables (LTRS and FIGS shifts), index = 5-bit code.
 BAUDOT_LTRS = [
@@ -235,6 +236,35 @@ _DECODER_TENSORS = "the decoder's window"
 STAGES = ("spectrum", "detect", "scores", "channels")
 
 
+class _Laps:
+    """The host's clock at the start of decode_block's work and at the end
+    of each part of it that ran (STAGES, in order), each part also the
+    range `pysdr.rtty_<stage>#<block_id>` while a torch.profiler
+    records."""
+
+    def __init__(self, block_id):
+        self.block_id = block_id
+        self.t = [time.perf_counter()]
+        self._range = None
+        self._enter()
+
+    def _enter(self):
+        k = len(self.t) - 1
+        if k < len(STAGES):
+            self._range = stage_range(f"rtty_{STAGES[k]}", self.block_id)
+            self._range.__enter__()
+
+    def close(self):
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+    def lap(self):
+        self.close()
+        self.t.append(time.perf_counter())
+        self._enter()
+
+
 class RTTYDecoder:
     """Host-driven streaming decoder over the device filterbank and
     matched filter.
@@ -275,6 +305,7 @@ class RTTYDecoder:
         self._bins: tuple = ((), None)
         self._stage_sum = dict.fromkeys(STAGES, 0.0)
         self.stage_blocks = 0
+        self._chars = self._rescans = 0
         self.channels: list[dict] = []   # {mark_bin, figs, text, ...}
         self._soft_tail = None           # float32 (T, n_ch) on the device
         self._iq_tail = None             # keeps frames hop-aligned across blocks
@@ -312,6 +343,13 @@ class RTTYDecoder:
         "channels" the per-channel state machine."""
         n = max(1, self.stage_blocks)
         return {k: v / n for k, v in self._stage_sum.items()}
+
+    @property
+    def counters(self) -> dict:
+        """Cumulative counts of the work decode_block did: the characters
+        it decoded, its rescans and the blocks that ran the filterbank."""
+        return {"chars": self._chars, "rescans": self._rescans,
+                "filterbank_blocks": self.stage_blocks}
 
     def _on_stream(self):
         return torch.cuda.stream(self.stream) if self.stream is not None \
@@ -532,7 +570,7 @@ class RTTYDecoder:
         self.channels = survivors
         return added, removed
 
-    def decode_block(self, x, ready=None) -> list[str]:
+    def decode_block(self, x, ready=None, block_id=None) -> list[str]:
         """Process one baseband block (complex (n,) or float32 (n, 2)
         pairs, a tensor or an array); returns newly decoded text per
         channel. Device, on the decoder's stream: [baseband tail | block]
@@ -543,9 +581,11 @@ class RTTYDecoder:
         ready: on a card, the CUDA events after which a device block is
         valid (the executive's drained_bb_ready), which the decoder's
         stream waits on; None waits on all work issued so far on the
-        current stream. The first block of an unprepared decoder
-        prepares its own length; a block whose frame count was not
-        prepared raises ValueError and leaves the decoder as it was."""
+        current stream. block_id: the block's id in the executive, which
+        keys each part's profiler range (`pysdr.rtty_<stage>#<block_id>`).
+        The first block of an unprepared decoder prepares its own length;
+        a block whose frame count was not prepared raises ValueError and
+        leaves the decoder as it was."""
         if self.stream is not None:
             if ready is None:
                 self.stream.wait_stream(
@@ -560,18 +600,22 @@ class RTTYDecoder:
                 x.record_stream(self.stream)
             if not self._frames:
                 self.prepare(x.shape[0])
-            laps = [time.perf_counter()]
+            laps = _Laps(block_id)
             try:
-                return self._decode(x, laps)
+                out = self._decode(x, laps)
+                self._chars += sum(map(len, out))
+                return out
             finally:
-                if len(laps) > 1:
-                    laps += [laps[-1]] * (len(STAGES) + 1 - len(laps))
-                    for k, a, b in zip(STAGES, laps, laps[1:]):
+                laps.close()
+                t = laps.t
+                if len(t) > 1:
+                    t += [t[-1]] * (len(STAGES) + 1 - len(t))
+                    for k, a, b in zip(STAGES, t, t[1:]):
                         self._stage_sum[k] += (b - a) * 1e3
 
-    def _decode(self, x: torch.Tensor, laps: list) -> list[str]:
-        """decode_block's work on the decoder's stream; appends the
-        host's clock to `laps` at the end of each part it runs (STAGES)."""
+    def _decode(self, x: torch.Tensor, laps: _Laps) -> list[str]:
+        """decode_block's work on the decoder's stream; `laps.lap()` at
+        the end of each part it runs (STAGES)."""
         d = self.design
         tail = self._iq_tail
         tl = 0 if tail is None else tail.shape[0]
@@ -598,7 +642,7 @@ class RTTYDecoder:
         # spectrum tap for the live RTTY waterfall (the reference RTTY
         # window's top pane, rtty.py:92-371): mean |X| over this block
         avg = self._pull(fr.mean, "mean").copy()
-        laps.append(time.perf_counter())
+        laps.lap()
         self.stage_blocks += 1
         self.last_spectrum = avg
         self._n_blocks += 1
@@ -608,7 +652,8 @@ class RTTYDecoder:
             # continuous station add/expire (reference re-scans every
             # pass, rtty.py:744-776)
             self.rescan(avg)
-        laps.append(time.perf_counter())
+            self._rescans += 1
+        laps.lap()
         if not self.channels:
             return []
         n_ch = len(self.channels)
@@ -626,10 +671,10 @@ class RTTYDecoder:
             # not one character's worth of frames yet (small device
             # blocks) — accumulate and wait
             self._soft_tail = soft
-            laps.append(time.perf_counter())
+            laps.lap()
             return ["" for _ in self.channels]
         sc = self._pull(sc, "scores")                 # (n_off, n_ch, 32)
-        laps.append(time.perf_counter())
+        laps.lap()
         out = [self._decode_channel(sc[:, ci, :], ch)
                for ci, ch in enumerate(self.channels)]
         # trim consumed frames; shift channel positions into the kept tail
@@ -637,7 +682,7 @@ class RTTYDecoder:
         self._soft_tail = soft[trim:].clone()
         for ch in self.channels:
             ch["pos"] = max(0, ch.get("pos", 0) - trim)
-        laps.append(time.perf_counter())
+        laps.lap()
         return out
 
     def _decode_channel(self, scores: np.ndarray, ch: dict) -> str:
