@@ -206,6 +206,28 @@ struct Streamer {
     }
 };
 
+// ---------------- RF wire quantizer ----------------
+// float32 values -> integer wire codes in one pass (the executive's host
+// upload), equal bit for bit to ops/cplx.quantize_host: x * s in
+// float32, clipped to +-s, rounded half to even, narrowed. The rounding
+// adds and subtracts 1.5 * 2^23 (exact for |v| < 2^22 in the default
+// rounding mode) instead of a libm call, so the loop vectorizes at the
+// Makefile's flags; the clip sits between the multiply and the add, so
+// nothing contracts into an FMA.
+
+template <typename T>
+static void quantize_wire(const float* __restrict__ in, T* __restrict__ out,
+                          size_t n, float s) {
+    const float round_even = 12582912.0f;
+    for (size_t i = 0; i < n; ++i) {
+        float v = in[i] * s;
+        v = v < -s ? -s : v;
+        v = v > s ? s : v;
+        out[i] = static_cast<T>(
+            static_cast<int32_t>((v + round_even) - round_even));
+    }
+}
+
 extern "C" {
 
 // ---- ring buffer ----
@@ -234,6 +256,15 @@ void psdr_convert_cs8(const int8_t* in, float* out, size_t n2, float scale) {
 void psdr_convert_cu8(const uint8_t* in, float* out, size_t n2) {
     for (size_t i = 0; i < n2; ++i)
         out[i] = (in[i] - 127.5f) * (1.0f / 127.5f);
+}
+
+// ---- RF wire quantizers (codes of n floats, scale s) ----
+void psdr_quantize_wire_i8(const float* in, int8_t* out, size_t n, float s) {
+    quantize_wire(in, out, n, s);
+}
+void psdr_quantize_wire_i16(const float* in, int16_t* out, size_t n,
+                            float s) {
+    quantize_wire(in, out, n, s);
 }
 
 // ---- file streamer ----

@@ -28,7 +28,11 @@ drains at the take of block k + pipeline_depth + 1, so at most
 pipeline_depth + 1 blocks are in flight and their steps overlap on the
 device: a block that comes while the executive polls is taken at once.
 
-Uploads go through pinned host memory with a non_blocking copy. Control
+Uploads go through pinned host memory with a non_blocking copy. An
+integer wire's codes are written in one pass by the C++ quantizer
+(runtime/native.wire_quantizer, resolved when the executive is built)
+straight into the pinned tensor the copy is issued from; without the
+library, quantize_host's codes are copied into it. Control
 mutations arrive through a thread-safe queue and are applied between
 blocks as writes into the bank's params; each copies the new params up
 from pageable memory, a sync of its own between blocks.
@@ -56,6 +60,7 @@ import numpy as np
 import torch
 
 from pysdr_tpu_torch.ops import cplx
+from pysdr_tpu_torch.runtime import native
 from pysdr_tpu_torch.runtime.profiler import (BlockProfiler, BlockSpan,
                                                stage_range)
 from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
@@ -70,15 +75,17 @@ WIRE_TORCH_DTYPES = {"f32": torch.float32, "i16": torch.int16,
 IDLE_POLL_S = 1e-4
 
 
-def upload(q: torch.Tensor, device: torch.device) -> torch.Tensor:
+def upload(q: torch.Tensor, device: torch.device,
+           pinned: bool = False) -> torch.Tensor:
     """A host wire block onto `device`: on a card, copied into pinned
-    memory (PyTorch's caching host allocator) and issued as a non_blocking
-    copy; on the CPU, the block itself."""
+    memory (PyTorch's caching host allocator) unless `pinned` says it is
+    there already, and issued as a non_blocking copy; on the CPU, the
+    block itself."""
     if device.type != "cuda":
         return q
-    pinned = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
-    pinned.copy_(q)
-    return pinned.to(device, non_blocking=True)
+    if not pinned:
+        q = torch.empty(q.shape, dtype=q.dtype, pin_memory=True).copy_(q)
+    return q.to(device, non_blocking=True)
 
 
 def start_host_copy(audio_w, bb=None):
@@ -152,6 +159,9 @@ class Executive:
         self.realtime = realtime
         self.loop_source = loop_source
         self.wire = wire
+        # an integer wire's C++ one-pass quantizer; None for f32 or where
+        # the library is unavailable (then quantize_host and a copy)
+        self._wire_pass = native.wire_quantizer(cplx.WIRE_DTYPES[wire])
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.want_bb = want_bb
         self.host_bb = host_bb
@@ -203,11 +213,16 @@ class Executive:
         # block's record (BlockSpan): handoff = pin+issue done to the
         # executive's take, hold = dispatch done to drain start; and
         # idle_drain, a count: the blocks drained while the executive
-        # waited for its next block (so stage_report gives their share)
+        # waited for its next block (so stage_report gives their share);
+        # wire_native, a count: the blocks whose wire codes the C++
+        # quantizer wrote straight into the pinned tensor (quantize is
+        # then the staging tensor's allocation and that pass, and
+        # pin+issue the copy's issue alone)
         self.stage_ms = {"read": 0.0, "upload": 0.0, "quantize": 0.0,
                          "pin+issue": 0.0, "dispatch": 0.0, "drain": 0.0,
                          "handoff": 0.0, "hold": 0.0, "drain_wait": 0.0,
-                         "decode": 0.0, "idle_drain": 0.0}
+                         "decode": 0.0, "idle_drain": 0.0,
+                         "wire_native": 0.0}
 
     def stage_report(self) -> dict:
         n = max(1, self.n_blocks)
@@ -276,23 +291,35 @@ class Executive:
         if pair is None:
             return None
         xp, x, span = pair
+        dev = self.bank.device
+        native_pass = self._wire_pass is not None
         with stage_range("quantize", span.id):
-            q = torch.from_numpy(np.ascontiguousarray(
-                cplx.quantize_host(xp, self.wire)))
+            if native_pass:
+                # the codes go straight into the tensor the copy is
+                # issued from (pinned on a card)
+                q = torch.empty(xp.shape,
+                                dtype=WIRE_TORCH_DTYPES[self.wire],
+                                pin_memory=dev.type == "cuda")
+                self._wire_pass(np.ascontiguousarray(xp, np.float32),
+                                q.data_ptr(), cplx.WIRE_SCALES[self.wire])
+            else:
+                q = torch.from_numpy(np.ascontiguousarray(
+                    cplx.quantize_host(xp, self.wire)))
         span.quantized = time.perf_counter_ns()
         with stage_range("pin+issue", span.id):
-            xb = upload(q, self.bank.device)
+            xb = upload(q, dev, pinned=native_pass)
         span.issued = time.perf_counter_ns()
         st = self.stage_ms
+        st["wire_native"] += native_pass
         st["quantize"] += (span.quantized - span.arrival) / 1e6
         st["pin+issue"] += (span.issued - span.quantized) / 1e6
         st["upload"] += (span.issued - span.arrival) / 1e6
         return xb, x, span
 
     def _pf_loop(self):
-        # each stage_ms key has one writer thread (read, upload, quantize
-        # and pin+issue here when prefetch is on, the others on the
-        # executive thread)
+        # each stage_ms key has one writer thread (read, upload, quantize,
+        # pin+issue and wire_native here when prefetch is on, the others
+        # on the executive thread)
         while not self._stop.is_set():
             if not self._pf_active.wait(timeout=0.2):
                 continue           # paused between run() calls

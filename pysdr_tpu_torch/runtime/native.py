@@ -17,6 +17,7 @@ import ctypes
 import os
 import subprocess
 import threading
+from typing import Callable
 
 import numpy as np
 
@@ -29,6 +30,9 @@ _build_lock = threading.Lock()   # hot path must not re-spawn make per block
 
 
 _HASH_PATH = _LIB_PATH + ".srchash"
+# the C++ quantizer of each integer RF wire's dtype (wire_quantizer)
+_WIRE_QUANTIZERS = {np.dtype(np.int8): "psdr_quantize_wire_i8",
+                    np.dtype(np.int16): "psdr_quantize_wire_i16"}
 
 
 def _src_hash() -> str:
@@ -125,6 +129,9 @@ def _load():
             getattr(lib, name).argtypes = [ctypes.c_void_p, fp,
                                            ctypes.c_size_t, ctypes.c_float]
         lib.psdr_convert_cu8.argtypes = [ctypes.c_void_p, fp, ctypes.c_size_t]
+        for name in _WIRE_QUANTIZERS.values():
+            getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_size_t, ctypes.c_float]
         _lib = lib
         return lib
 
@@ -146,6 +153,25 @@ def convert_cu8(raw: np.ndarray) -> np.ndarray | None:
     lib.psdr_convert_cu8(
         raw.ctypes.data_as(ctypes.c_void_p), _as_fp(out), raw.size)
     return out.reshape(-1, 2)
+
+
+def wire_quantizer(dtype) -> Callable[[np.ndarray, int, float], None] | None:
+    """The C++ one-pass quantizer to an integer RF wire (dtype int8 or
+    int16), or None for any other dtype or where the library is
+    unavailable. quantize(xp, addr, s) writes round-half-even(clip(xp * s,
+    -s, s)) of the C-contiguous float32 array xp, xp.size codes, to the
+    buffer at address addr: ops/cplx.quantize_host's codes bit for bit.
+    Loads (and if need be builds) the library now, not at the first
+    call."""
+    name = _WIRE_QUANTIZERS.get(np.dtype(dtype))
+    lib = _load() if name is not None else None
+    if lib is None:
+        return None
+    fn = getattr(lib, name)
+
+    def quantize(xp: np.ndarray, addr: int, s: float) -> None:
+        fn(xp.ctypes.data, addr, xp.size, s)
+    return quantize
 
 
 def _as_fp(a: np.ndarray):
