@@ -1421,9 +1421,9 @@ def wire_blocks(n, wire, count, seed=0):
     for _ in range(count):
         x = 0.3 * torch.randn((n, 2), generator=gen, device="cuda")
         if wire != "f32":
-            sc = cplx.WIRE_SCALES[wire]
+            sc = cplx.WIRES[wire].scale
             x = torch.clamp(torch.round(x * sc), -sc, sc).to(
-                torch.int8 if wire == "i8" else torch.int16)
+                cplx.WIRES[wire].torch_dtype)
         out.append(x)
     return out
 

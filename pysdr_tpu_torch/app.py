@@ -29,8 +29,6 @@ from pysdr_tpu_torch import config as cfg_mod
 from pysdr_tpu_torch import tables
 from pysdr_tpu_torch.tables import Mode
 
-# flags of pysdr_tpu's CLI whose feature is not in this package yet
-UNPORTED = ()
 # features the channelizer bank does not carry (pysdr_tpu.app's list)
 NOT_WITH_CHANNELIZE = ("rtty", "hamlib", "rig", "hop", "hop_schedule")
 
@@ -472,12 +470,6 @@ def build_source(args, cfg: cfg_mod.PipelineConfig):
                             fc=cfg.sdr_center_hz,
                             rf_gain_db=args.rf_gain or 0.0, ppm=args.ppm)
     return src, cfg.fs_in, cfg.sdr_center_hz
-
-
-def unported_flags(ap, args) -> list[str]:
-    """The unported flags given on this command line."""
-    return ["--" + dest.replace("_", "-") for dest in UNPORTED
-            if getattr(args, dest) != ap.get_default(dest)]
 
 
 def build_channelizer(args):
@@ -935,13 +927,7 @@ def _apply_preset(args) -> bool:
 def run_cli(argv=None):
     """The whole CLI run: returns (exit code, the App or None when the
     run ended before one was built)."""
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    bad = unported_flags(ap, args)
-    if bad:
-        print(f"error: {bad[0]} is not yet ported to pysdr_tpu_torch",
-              file=sys.stderr)
-        return 2, None
+    args = build_parser().parse_args(argv)
     try:
         for m in (args.modes or [args.mode]):
             tables.mode_from_name(m)

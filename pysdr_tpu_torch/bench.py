@@ -264,11 +264,11 @@ def _write_am_dat(path, fs, n, offset_hz=120e3):
 
 def _wire_bytes(wire: str) -> int:
     """Bytes per component for a wire format, from the table that defines
-    the formats (ops/cplx.WIRE_DTYPES)."""
+    the formats (ops/cplx.WIRES)."""
     import numpy as np
 
     from pysdr_tpu_torch.ops import cplx
-    return np.dtype(cplx.WIRE_DTYPES[wire]).itemsize
+    return np.dtype(cplx.WIRES[wire].np_dtype).itemsize
 
 
 def tone_db(audio, fs, hz=TONE_HZ) -> float:
@@ -369,21 +369,23 @@ def _run_e2e(argv, n_blocks=50, warm=2, reps=5):
 def _measure_transport_mbps(st: Settings, n_bytes=4 << 20, iters=50):
     """Host<->card rate in the executive's own pattern: a chained stateful
     step (state = f(state, x)) with one upload and one pull an iteration,
-    n_bytes of int8 up (a pinned copy, issued non_blocking:
-    executive.upload) and n_bytes / 4 down (executive.start_host_copy,
-    then a wait for its event). MB/s of both directions together over
-    the median iteration: one window of 6 iterations (the root bench's)
-    read 1.07 and 9.6 GB/s in two runs of one call on the card."""
+    n_bytes of int8 up (copied into executive.staging, issued
+    non_blocking: executive.upload) and n_bytes / 4 down
+    (executive.start_host_copy, then a wait for its event). MB/s of both
+    directions together over the median iteration: one window of 6
+    iterations (the root bench's) read 1.07 and 9.6 GB/s in two runs of
+    one call on the card."""
     import torch
 
     from pysdr_tpu_torch.device import resolve_device
-    from pysdr_tpu_torch.runtime.executive import start_host_copy, upload
+    from pysdr_tpu_torch.runtime.executive import (staging, start_host_copy,
+                                                    upload)
     dev = resolve_device(st.device)
     n_bytes = st.size(n_bytes)
     buf = torch.zeros(n_bytes, dtype=torch.int8)
 
     def step(state):
-        x = upload(buf, dev)
+        x = upload(staging(buf.shape, buf.dtype, dev).copy_(buf), dev)
         state = state + x.to(torch.float32).sum()
         _, _, events = start_host_copy((x + 1)[:n_bytes // 4])
         for ev in events:

@@ -9,11 +9,25 @@ packing helpers have no counterpart here.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-WIRE_SCALES = {"i8": 127.0, "i16": 32767.0}
-WIRE_DTYPES = {"i8": np.int8, "i16": np.int16, "f32": np.float32}
+
+class Wire(NamedTuple):
+    """An RF wire format: its dtype on the host and on the device, and its
+    full scale (the code of |x| = 1.0; None on the f32 wire, which
+    carries the floats)."""
+    np_dtype: type
+    torch_dtype: torch.dtype
+    scale: float | None
+
+
+WIRES = {"i8": Wire(np.int8, torch.int8, 127.0),
+         "i16": Wire(np.int16, torch.int16, 32767.0),
+         "f32": Wire(np.float32, torch.float32, None)}
+_SCALES = {w.torch_dtype: w.scale for w in WIRES.values() if w.scale}
 
 AUDIO_WIRE_HEADROOM = 4.0
 _MU = 255.0
@@ -21,11 +35,8 @@ _MU = 255.0
 
 def dequantize(x_p: torch.Tensor) -> torch.Tensor:
     """int8/int16 (..., 2) wire block -> float32; float32 passes through."""
-    if x_p.dtype == torch.int8:
-        return x_p.to(torch.float32) * np.float32(1.0 / 127.0)
-    if x_p.dtype == torch.int16:
-        return x_p.to(torch.float32) * np.float32(1.0 / 32767.0)
-    return x_p
+    s = _SCALES.get(x_p.dtype)
+    return x_p if s is None else x_p.to(torch.float32) * np.float32(1.0 / s)
 
 
 def quantize_audio_wire(xp: torch.Tensor, wire: str) -> torch.Tensor:
@@ -66,7 +77,8 @@ def dequantize_audio_host(q: np.ndarray) -> np.ndarray:
 def quantize_host(xp: np.ndarray, wire: str) -> np.ndarray:
     """Host: float32 (..., 2) pairs -> wire dtype (full scale |x| = 1.0;
     beyond it clips like an ADC)."""
-    if wire == "f32":
+    w = WIRES[wire]
+    if w.scale is None:
         return xp
-    s = WIRE_SCALES[wire]
-    return np.clip(np.rint(xp * s), -s, s).astype(WIRE_DTYPES[wire])
+    s = w.scale
+    return np.clip(np.rint(xp * s), -s, s).astype(w.np_dtype)

@@ -2,48 +2,37 @@
 (counterpart of pysdr_tpu/runtime/executive.py, same surface: run,
 post, stop, stage_report, run_in_thread).
 
-Per block the host reads (and wire-quantizes) the next IQ chunk while the
-device computes the current one: CUDA kernels run asynchronously and the
-step never waits on the card (its constants live on the device). A
-bank's step (ReceiverBank, ChannelizerBank) is one CUDA graph replay a
-block, a --mesh adapter's one replay a shard, captured by `prepare`
-before the prefetch thread starts (a capture fails if another thread
-works on the card meanwhile). Right after a block's step is issued, its
-audio wire (the step's static output, rewritten by the next step), and
-its baseband when the caller reads that on the host, start copying into
-pinned host memory with one CUDA event a device (start_host_copy, the
-reference's copy_to_host_async), so a block's drain waits for that
-block's copies alone, not for the steps and uploads queued after it;
-the same events tell a consumer of the baseband on the card (the RTTY
-decoder, on its own stream) when the block's baseband is valid.
+The host reads and stages the next IQ chunk while the device computes
+the current one: CUDA kernels run asynchronously and the step never
+waits on the card. A bank's step is one CUDA graph replay a block (a
+--mesh adapter's, one a shard), captured by `prepare` before the
+prefetch thread starts (a capture fails if another thread works on the
+card meanwhile). Right after a block's step is issued, its audio wire
+(the step's static output, rewritten by the next step), and its
+baseband when the caller reads that on the host, start copying to the
+host (start_host_copy), so a block's drain waits for that block's copies
+alone, not for the steps and uploads queued after it; the same events
+tell a consumer of the baseband on the card (the RTTY decoder, on its
+own stream) when the block's baseband is valid.
 
-When a block drains: right after a dispatch, while the next block is
-not ready (the prefetch thread's queue is empty, as in a live stream),
-the executive polls the oldest block's copy events and the queue (every
-IDLE_POLL_S) and drains that block as soon as its copies are done, then
-the next oldest, instead of waiting idle with their audio done. Once the
-next block is ready, or without prefetch (the read runs on the
-executive's thread, which cannot see whether it would wait), block k
-drains at the take of block k + pipeline_depth + 1, so at most
+While the next block is not ready (the prefetch queue empty, as in a
+live stream), the executive polls the oldest block's copy events and the
+queue every IDLE_POLL_S and drains that block as soon as its copies are
+done. Once the next block is ready, or without prefetch (the read runs
+on the executive's thread, which cannot see whether it would wait),
+block k drains at the take of block k + pipeline_depth + 1, so at most
 pipeline_depth + 1 blocks are in flight and their steps overlap on the
-device: a block that comes while the executive polls is taken at once.
+device.
 
-Uploads go through pinned host memory with a non_blocking copy. An
-integer wire's codes are written in one pass by the C++ quantizer
-(runtime/native.wire_quantizer, resolved when the executive is built)
-straight into the pinned tensor the copy is issued from; without the
-library, quantize_host's codes are copied into it. Control
-mutations arrive through a thread-safe queue and are applied between
-blocks as writes into the bank's params; each copies the new params up
-from pageable memory, a sync of its own between blocks.
+Control mutations arrive through a thread-safe queue and are applied
+between blocks as writes into the bank's params; each copies the new
+params up from pageable memory, a sync of its own between blocks.
 
 Each block read gets an id (the source's read order) and a record
-(profiler.BlockSpan: perf_counter_ns marks from its read to its audio's
-push, the take that released its drain, None where the executive
-drained it while waiting for its next block);
-the last 4096 drained blocks' records stay in `block_spans`, and
-`stage_ms` sums the stages of the same marks. While a
-torch.profiler records, each stage is also a `pysdr.<stage>#<id>` range.
+(profiler.BlockSpan, whose stages profiler.BLOCK_STAGES names): the last
+4096 drained blocks' records stay in `block_spans`, and `stage_ms` sums
+their stages. While a torch.profiler records, each stage is also a
+`pysdr.<stage>#<id>` range.
 """
 
 from __future__ import annotations
@@ -61,13 +50,12 @@ import torch
 
 from pysdr_tpu_torch.ops import cplx
 from pysdr_tpu_torch.runtime import native
-from pysdr_tpu_torch.runtime.profiler import (BlockProfiler, BlockSpan,
-                                               stage_range)
+from pysdr_tpu_torch.runtime.profiler import (BLOCK_STAGES, BlockProfiler,
+                                               BlockSpan, stage_range)
 from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
 
-# the RF wire's dtype on the device, as upload() moves it
-WIRE_TORCH_DTYPES = {"f32": torch.float32, "i16": torch.int16,
-                     "i8": torch.int8}
+# the stages stage_ms sums over the drained blocks
+SUMMED_STAGES = tuple(s for s, _, _, _, summed in BLOCK_STAGES if summed)
 # how often the executive, its next block not yet ready, looks at the
 # oldest block's copy events and at the prefetch queue: a step and its
 # copies take about half a millisecond on an H100 (a host whose timer
@@ -75,16 +63,16 @@ WIRE_TORCH_DTYPES = {"f32": torch.float32, "i16": torch.int16,
 IDLE_POLL_S = 1e-4
 
 
-def upload(q: torch.Tensor, device: torch.device,
-           pinned: bool = False) -> torch.Tensor:
-    """A host wire block onto `device`: on a card, copied into pinned
-    memory (PyTorch's caching host allocator) unless `pinned` says it is
-    there already, and issued as a non_blocking copy; on the CPU, the
-    block itself."""
-    if device.type != "cuda":
-        return q
-    if not pinned:
-        q = torch.empty(q.shape, dtype=q.dtype, pin_memory=True).copy_(q)
+def staging(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """An empty host tensor to write a wire block bound for `device` into:
+    on a card, pinned (PyTorch's caching host allocator), so that
+    upload's copy runs asynchronously."""
+    return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def upload(q: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A wire block written into staging() onto `device`: on a card, a
+    non_blocking copy; on the CPU, the block itself."""
     return q.to(device, non_blocking=True)
 
 
@@ -160,8 +148,8 @@ class Executive:
         self.loop_source = loop_source
         self.wire = wire
         # an integer wire's C++ one-pass quantizer; None for f32 or where
-        # the library is unavailable (then quantize_host and a copy)
-        self._wire_pass = native.wire_quantizer(cplx.WIRE_DTYPES[wire])
+        # the library is unavailable (then quantize_host)
+        self._wire_pass = native.wire_quantizer(cplx.WIRES[wire].np_dtype)
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.want_bb = want_bb
         self.host_bb = host_bb
@@ -204,25 +192,11 @@ class Executive:
         self.drained_bb = None
         self.drained_bb_ready: list = []
         self.drained_bb_host = None
-        # mean ms/block per stage: read = host source, upload = quantize
-        # (the host's wire quantization) + pin+issue (the copy into pinned
-        # memory and the host->device issue), dispatch = device step issue
-        # (the block's copy into the step's static input and the graph's
-        # replay) and its host copies' start, drain = drain_wait (the host
-        # copies' events) + decode (audio_from_wire); from each drained
-        # block's record (BlockSpan): handoff = pin+issue done to the
-        # executive's take, hold = dispatch done to drain start; and
-        # idle_drain, a count: the blocks drained while the executive
-        # waited for its next block (so stage_report gives their share);
-        # wire_native, a count: the blocks whose wire codes the C++
-        # quantizer wrote straight into the pinned tensor (quantize is
-        # then the staging tensor's allocation and that pass, and
-        # pin+issue the copy's issue alone)
-        self.stage_ms = {"read": 0.0, "upload": 0.0, "quantize": 0.0,
-                         "pin+issue": 0.0, "dispatch": 0.0, "drain": 0.0,
-                         "handoff": 0.0, "hold": 0.0, "drain_wait": 0.0,
-                         "decode": 0.0, "idle_drain": 0.0,
-                         "wire_native": 0.0}
+        # {stage: ms} over the drained blocks, and two counts of them:
+        # idle_drain, those drained while the executive waited for its
+        # next block; wire_native, those whose codes the C++ quantizer wrote
+        self.stage_ms = dict.fromkeys(
+            (*SUMMED_STAGES, "idle_drain", "wire_native"), 0.0)
 
     def stage_report(self) -> dict:
         n = max(1, self.n_blocks)
@@ -279,47 +253,33 @@ class Executive:
         with stage_range("read", span.id):
             pair = self._read_host_raw()
         span.arrival = time.perf_counter_ns()
-        self.stage_ms["read"] += (span.arrival - span.read0) / 1e6
         if pair is None:
             return None
         self._next_read += 1
         return (*pair, span)
 
     def _prepare(self, pair):
-        """Wire quantization + host->device issue for a read block:
-        (device block, host complex64, BlockSpan) or None."""
+        """Stage a read block and issue its host->device copy: (device
+        block, host complex64, BlockSpan) or None."""
         if pair is None:
             return None
         xp, x, span = pair
         dev = self.bank.device
-        native_pass = self._wire_pass is not None
+        wire = cplx.WIRES[self.wire]
         with stage_range("quantize", span.id):
-            if native_pass:
-                # the codes go straight into the tensor the copy is
-                # issued from (pinned on a card)
-                q = torch.empty(xp.shape,
-                                dtype=WIRE_TORCH_DTYPES[self.wire],
-                                pin_memory=dev.type == "cuda")
+            q = staging(xp.shape, wire.torch_dtype, dev)
+            if self._wire_pass is not None:
                 self._wire_pass(np.ascontiguousarray(xp, np.float32),
-                                q.data_ptr(), cplx.WIRE_SCALES[self.wire])
+                                q.data_ptr(), wire.scale)
             else:
-                q = torch.from_numpy(np.ascontiguousarray(
-                    cplx.quantize_host(xp, self.wire)))
+                q.numpy()[...] = cplx.quantize_host(xp, self.wire)
         span.quantized = time.perf_counter_ns()
         with stage_range("pin+issue", span.id):
-            xb = upload(q, dev, pinned=native_pass)
+            xb = upload(q, dev)
         span.issued = time.perf_counter_ns()
-        st = self.stage_ms
-        st["wire_native"] += native_pass
-        st["quantize"] += (span.quantized - span.arrival) / 1e6
-        st["pin+issue"] += (span.issued - span.quantized) / 1e6
-        st["upload"] += (span.issued - span.arrival) / 1e6
         return xb, x, span
 
     def _pf_loop(self):
-        # each stage_ms key has one writer thread (read, upload, quantize,
-        # pin+issue and wire_native here when prefetch is on, the others
-        # on the executive thread)
         while not self._stop.is_set():
             if not self._pf_active.wait(timeout=0.2):
                 continue           # paused between run() calls
@@ -398,7 +358,7 @@ class Executive:
         run prepare_hooks (each a no-op once done): run() calls it before
         it starts the prefetch thread, and a caller may call it earlier,
         before other threads (a trace, services) start."""
-        self.bank.prepare(WIRE_TORCH_DTYPES[self.wire],
+        self.bank.prepare(cplx.WIRES[self.wire].torch_dtype,
                           self.bank.design.in_block)
         for hook in self.prepare_hooks:
             hook()
@@ -411,7 +371,7 @@ class Executive:
         block_budget = d.in_block / d.fs_in
         next_deadline = None
 
-        def finish(entry, span, released_by):
+        def finish(entry, span, released_by=None, idle=False):
             nonlocal next_deadline
             span.released_by = released_by
             span.drain0 = time.perf_counter_ns()
@@ -424,16 +384,16 @@ class Executive:
                 if self.demod_writer is not None:
                     self.demod_writer.save_data(audio.T)
             span.pushed = time.perf_counter_ns()
-            st = self.stage_ms
-            st["handoff"] += (span.taken - span.issued) / 1e6
-            st["hold"] += (span.drain0 - span.dispatch1) / 1e6
-            st["drain_wait"] += (span.waited - span.drain0) / 1e6
-            st["decode"] += (span.decoded - span.waited) / 1e6
-            st["drain"] += (span.decoded - span.drain0) / 1e6
             self.block_spans.append(span)
             if self.psd_callback is not None:
                 with stage_range("callback", span.id):
                     self.psd_callback(self, audio)
+            # the block's account, once it is delivered: it delays no delivery
+            ms = span.stages_ms()
+            ms["idle_drain"] = idle
+            ms["wire_native"] = self._wire_pass is not None
+            for k in self.stage_ms:
+                self.stage_ms[k] += ms[k]
             self.n_blocks += 1
             if self.realtime:
                 # absolute schedule, debt clamped to one budget
@@ -476,16 +436,13 @@ class Executive:
                             audio_w, bb if self.host_bb else None), bb),
                             span))
                     span.dispatch1 = time.perf_counter_ns()
-                    self.stage_ms["dispatch"] += \
-                        (span.dispatch1 - span.dispatch0) / 1e6
                     # while the next block is not here (the prefetch
                     # queue holds neither it nor the stream's end), drain
                     # the oldest blocks in flight as their copies finish,
                     # not at a take pipeline_depth + 1 blocks later
                     while pending and self.prefetch and \
                             self._copies_first(pending[0][0][0][2]):
-                        finish(*pending.popleft(), None)
-                        self.stage_ms["idle_drain"] += 1
+                        finish(*pending.popleft(), idle=True)
                     # read the next block only if it will be dispatched
                     item = self._read_block() \
                         if wants_more(len(pending)) else None
@@ -497,7 +454,7 @@ class Executive:
                 if item is not None and not wants_more(len(pending)):
                     self._held, item = item, None            # deadline hit
             while pending:
-                finish(*pending.popleft(), None)
+                finish(*pending.popleft())
             return self.profiler
         finally:
             self._pf_active.clear()

@@ -37,26 +37,35 @@ from torch.autograd import profiler as _autograd_profiler
 BLOCK_MARKS = ("read0", "arrival", "quantized", "issued", "taken",
                "dispatch0", "dispatch1", "drain0", "waited", "decoded",
                "pushed")
-# the stages that tile a block from arrival to pushed: (stage, from, to).
-# control is the take to the dispatch: the control commands, the raw
-# writer and, where this take released one, the released block's drain,
-# push and per-block callback (psd_callback, the App's display and RTTY
-# taps; with realtime, the pacing sleep); hold is the wait of a
-# dispatched block for its drain. While the executive's next block is
-# not ready (the prefetch queue empty, as in a live stream), a block
-# drains as soon as the executive's poll finds its copies done (its hold
-# is that wait, its callback runs in the executive's idle time); once
-# the next block is ready, or without prefetch, the take of block id +
-# pipeline_depth + 1 starts it
-BLOCK_STAGES = (("quantize", "arrival", "quantized"),
-                ("pin+issue", "quantized", "issued"),
-                ("handoff", "issued", "taken"),
-                ("control", "taken", "dispatch0"),
-                ("dispatch", "dispatch0", "dispatch1"),
-                ("hold", "dispatch1", "drain0"),
-                ("drain_wait", "drain0", "waited"),
-                ("decode", "waited", "decoded"),
-                ("push", "decoded", "pushed"))
+# a block's stages: (stage, from mark, to mark, tiles, summed). The tiling
+# stages run one mark to the next from arrival to pushed; read, upload
+# and drain span others. The executive's stage_ms sums the summed ones
+# over its drained blocks. quantize is the staging tensor's allocation
+# (pinned on a card) and the wire codes' write into it, pin+issue the
+# host->device copy's issue. control is the take to the dispatch: the
+# control commands, the raw writer and, where this take released one,
+# the released block's drain, push and per-block callback (psd_callback,
+# the App's display and RTTY taps; with realtime, the pacing sleep); hold
+# is the wait of a dispatched block for its drain. While the executive's
+# next block is not ready (the prefetch queue empty, as in a live
+# stream), a block drains as soon as the executive's poll finds its
+# copies done (its hold is that wait, its callback runs in the
+# executive's idle time); once the next block is ready, or without
+# prefetch, the take of block id + pipeline_depth + 1 starts it
+BLOCK_STAGES = (
+    # stage        from         to           tiles  summed
+    ("read",       "read0",     "arrival",   False, True),
+    ("quantize",   "arrival",   "quantized", True,  True),
+    ("pin+issue",  "quantized", "issued",    True,  True),
+    ("upload",     "arrival",   "issued",    False, True),
+    ("handoff",    "issued",    "taken",     True,  True),
+    ("control",    "taken",     "dispatch0", True,  False),
+    ("dispatch",   "dispatch0", "dispatch1", True,  True),
+    ("hold",       "dispatch1", "drain0",    True,  True),
+    ("drain_wait", "drain0",    "waited",    True,  True),
+    ("decode",     "waited",    "decoded",   True,  True),
+    ("drain",      "drain0",    "decoded",   False, True),
+    ("push",       "decoded",   "pushed",    True,  False))
 
 
 class BlockSpan:
@@ -73,9 +82,10 @@ class BlockSpan:
         self.released_by = None
 
     def stages_ms(self) -> dict:
-        """{stage: ms} of BLOCK_STAGES, which sum to pushed - arrival."""
+        """{stage: ms} of every BLOCK_STAGES row; the tiling stages sum to
+        pushed - arrival."""
         return {s: (getattr(self, b) - getattr(self, a)) / 1e6
-                for s, a, b in BLOCK_STAGES}
+                for s, a, b, _, _ in BLOCK_STAGES}
 
 
 _NO_RANGE = contextlib.nullcontext()

@@ -2,7 +2,7 @@
 BlockSpan carries the source's read order as its id, marks in order that
 tile the block from arrival to pushed, the take that released its drain
 (none for a block drained while the executive waited for its next one),
-and the counters of stage_ms are the sums of the records; under a
+and the stages of stage_ms are the sums of the records; under a
 torch.profiler every stage is a `pysdr.<stage>#<id>` range, and with no
 profiler no range is entered."""
 
@@ -17,7 +17,7 @@ import torch
 
 from pysdr_tpu_torch.config import PipelineConfig, ReceiverConfig
 from pysdr_tpu_torch.models.receiver import ReceiverBank
-from pysdr_tpu_torch.runtime import profiler
+from pysdr_tpu_torch.runtime import native, profiler
 from pysdr_tpu_torch.runtime.executive import Executive
 from pysdr_tpu_torch.tables import Mode
 from tests.paced import PacedSynth
@@ -28,12 +28,13 @@ CFG = PipelineConfig(fs_in=512e3, fs_out=48e3, out_block=1024,
                      foffset_hz=60e3, receivers=(
                          ReceiverConfig(fc_hz=10e6, mode=Mode.AM),
                          ReceiverConfig(fc_hz=10.02e6, mode=Mode.USB)))
-# the counters a drained block's record adds to, by the stage it times
-RECORD_KEYS = ("quantize", "pin+issue", "handoff", "dispatch", "hold",
-               "drain_wait", "decode")
+# the keys of stage_ms, which the benchmark's readers read by name
+STAGE_MS_KEYS = {"read", "upload", "quantize", "pin+issue", "dispatch",
+                 "drain", "handoff", "hold", "drain_wait", "decode",
+                 "idle_drain", "wire_native"}
 
 
-def _live_run(n, depth, prefetch, gate=False):
+def _live_run(n, depth, prefetch, gate=False, wire="f32"):
     delivered = []
     done = [threading.Event() for _ in range(n)] if gate else None
 
@@ -45,27 +46,34 @@ def _live_run(n, depth, prefetch, gate=False):
     src = PacedSynth(CFG.fs_in, n, gate=done)
     ex = Executive(ReceiverBank(CFG, device="cpu"), src, psd_callback=tap,
                    loop_source=False, pipeline_depth=depth,
-                   prefetch=prefetch)
+                   prefetch=prefetch, wire=wire)
     ex.run()
     ex.stop()
     return ex, src, delivered
 
 
-@pytest.mark.parametrize("depth,prefetch", [(1, True), (2, True), (3, True),
-                                            (2, False)])
-def test_live_blocks_carry_records_that_tile_them(depth, prefetch):
+@pytest.mark.parametrize("depth,prefetch,wire,lib", [
+    (1, True, "f32", True), (2, True, "i8", True), (3, True, "i16", True),
+    (2, False, "i8", False), (2, True, "i16", False)])
+def test_live_blocks_carry_records_that_tile_them(monkeypatch, depth,
+                                                  prefetch, wire, lib):
     """A live-paced run to the stream's end: every delivered block has a
     record whose id is its delivery order and the source's read order;
-    its marks are in order and its stages tile arrival..pushed; each
-    counter of stage_ms is the sum over the records, and drain is
-    drain_wait + decode. With prefetch, where the next block is not
-    ready while a block is in flight (the source gated on the last
-    block's delivery), each block drains before the take of block id + 1,
-    no take released it and idle_drain counts every block; without, the
-    take of block id + depth + 1 released each drain in the steady
-    state."""
+    its marks are in order and its tiling stages tile arrival..pushed;
+    stage_ms has the same keys on every wire, with the native pass or
+    without (the library unavailable), each of its stages is the sum over
+    the records, upload is quantize + pin+issue and drain is drain_wait +
+    decode, and wire_native counts the blocks the native pass wrote. With
+    prefetch, where the next block is not ready while a block is in
+    flight (the source gated on the last block's delivery), each block
+    drains before the take of block id + 1, no take released it and
+    idle_drain counts every block; without, the take of block id +
+    depth + 1 released each drain in the steady state."""
     n = 16
-    ex, src, delivered = _live_run(n, depth, prefetch, gate=prefetch)
+    if not lib:
+        monkeypatch.setattr(native, "_load", lambda: None)
+    ex, src, delivered = _live_run(n, depth, prefetch, gate=prefetch,
+                                   wire=wire)
     spans = list(ex.block_spans)
     assert [i for i, _ in delivered] == list(range(n))
     assert [s.id for s in spans] == list(range(n))
@@ -77,9 +85,11 @@ def test_live_blocks_carry_records_that_tile_them(depth, prefetch):
         assert s.read0 <= t_src * 1e9 <= s.arrival + 1e3
         assert s.pushed <= t_cb
         st = s.stages_ms()
-        assert [k for k, _, _ in profiler.BLOCK_STAGES] == list(st)
+        assert [k for k, *_ in profiler.BLOCK_STAGES] == list(st)
         assert min(st.values()) >= 0.0
-        assert sum(st.values()) == pytest.approx(
+        tiles = [st[k] for k, _, _, tiling, _ in profiler.BLOCK_STAGES
+                 if tiling]
+        assert sum(tiles) == pytest.approx(
             (s.pushed - s.arrival) / 1e6, abs=1e-6)
         if prefetch:
             assert s.released_by is None, s.id
@@ -89,6 +99,9 @@ def test_live_blocks_carry_records_that_tile_them(depth, prefetch):
             want = s.id + depth + 1
             assert s.released_by == (want if want < n else None), s.id
     stage = ex.stage_ms
+    assert set(stage) == STAGE_MS_KEYS
+    native_pass = lib and wire != "f32" and native.available()
+    assert stage["wire_native"] == (n if native_pass else 0)
     if prefetch:
         assert stage["idle_drain"] == n
     else:
@@ -98,13 +111,13 @@ def test_live_blocks_carry_records_that_tile_them(depth, prefetch):
         # the drain starts at the take of its releaser
         for s in steady:
             assert s.drain0 >= spans[s.released_by].taken
-    for k in RECORD_KEYS:
+    for k in STAGE_MS_KEYS - {"idle_drain", "wire_native"}:
         assert stage[k] == pytest.approx(
             sum(s.stages_ms()[k] for s in spans), rel=1e-9, abs=1e-9), k
     assert stage["upload"] == pytest.approx(
         stage["quantize"] + stage["pin+issue"], rel=1e-9)
-    assert abs(stage["drain"] - stage["drain_wait"] - stage["decode"]) \
-        <= 1e-3 * n
+    assert stage["drain"] == pytest.approx(
+        stage["drain_wait"] + stage["decode"], rel=1e-9)
     if not prefetch:                  # read and take on one thread
         assert stage["handoff"] < 1.0 * n
 

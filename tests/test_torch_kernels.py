@@ -899,9 +899,9 @@ def _wire_blocks(n, wire, count, seed, cuda):
     for _ in range(count):
         x = 0.3 * torch.randn((n, 2), generator=gen, device=cuda)
         if wire != "f32":
-            s = cplx.WIRE_SCALES[wire]
+            s = cplx.WIRES[wire].scale
             x = torch.clamp(torch.round(x * s), -s, s).to(
-                torch.int8 if wire == "i8" else torch.int16)
+                cplx.WIRES[wire].torch_dtype)
         out.append(x)
     return out
 

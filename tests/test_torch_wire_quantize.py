@@ -15,7 +15,7 @@ from pysdr_tpu_torch.io import datfile
 from pysdr_tpu_torch.models.receiver import ReceiverBank
 from pysdr_tpu_torch.ops import cplx
 from pysdr_tpu_torch.runtime import native
-from pysdr_tpu_torch.runtime.executive import WIRE_TORCH_DTYPES, Executive
+from pysdr_tpu_torch.runtime.executive import Executive
 from pysdr_tpu_torch.tables import Mode
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -58,11 +58,11 @@ def _case(name: str, s: float) -> np.ndarray:
                                   "cs8", "cu8"])
 @pytest.mark.parametrize("wire", ["i8", "i16"])
 def test_native_pass_is_quantize_host_bit_for_bit(wire, case):
-    s = cplx.WIRE_SCALES[wire]
+    s = cplx.WIRES[wire].scale
     xp = _case(case, s)
     with np.errstate(over="ignore"):        # 3e38 * s is inf
         want = cplx.quantize_host(xp, wire)
-    got = np.empty(xp.shape, cplx.WIRE_DTYPES[wire])
+    got = np.empty(xp.shape, cplx.WIRES[wire].np_dtype)
     native.wire_quantizer(got.dtype)(xp, got.ctypes.data, s)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
@@ -101,9 +101,10 @@ def test_executive_uploads_quantize_hosts_codes(cs8_replay, monkeypatch,
                                                 wire, lib):
     """An executive over the replay uploads, block by block, exactly
     quantize_host's codes of the block read: with the library, the native
-    pass writes every block's (stage_ms["wire_native"] counts each block
-    taken); with the library unavailable, or on the f32 wire, the old
-    path does and the count stays 0."""
+    pass writes every block's into its staging tensor
+    (stage_ms["wire_native"] counts each block drained); with the library
+    unavailable, or on the f32 wire, quantize_host's codes are copied
+    into it and the count stays 0."""
     path, in_block = cs8_replay
     if not lib:
         monkeypatch.setattr(native, "_load", lambda: None)
@@ -125,7 +126,7 @@ def test_executive_uploads_quantize_hosts_codes(cs8_replay, monkeypatch,
             for _ in range(N_BLOCKS)]
     assert ex.n_blocks == len(seen) == N_BLOCKS
     for got, w in zip(seen, want):
-        assert got.dtype == WIRE_TORCH_DTYPES[wire]
+        assert got.dtype == cplx.WIRES[wire].torch_dtype
         np.testing.assert_array_equal(got.numpy(), w)
     native_pass = lib and wire != "f32"
     assert ex.stage_ms["wire_native"] == (N_BLOCKS if native_pass else 0)
