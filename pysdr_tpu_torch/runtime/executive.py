@@ -16,13 +16,17 @@ tell a consumer of the baseband on the card (the RTTY decoder, on its
 own stream) when the block's baseband is valid.
 
 While the next block is not ready (the prefetch queue empty, as in a
-live stream), the executive polls the oldest block's copy events and the
-queue every IDLE_POLL_S and drains that block as soon as its copies are
-done. Once the next block is ready, or without prefetch (the read runs
-on the executive's thread, which cannot see whether it would wait),
-block k drains at the take of block k + pipeline_depth + 1, so at most
-pipeline_depth + 1 blocks are in flight and their steps overlap on the
-device.
+live stream), the executive waits on one condition until the oldest
+block's copies are done or the prefetch thread has handed over an item
+(the next block, or the stream's end), and drains that block at once in
+the first case. Both ends notify it: the copy waiter, a thread that
+synchronises each dispatched block's copy events in dispatch order, once
+a block's copies are done, and the prefetch thread after each put; no
+timer wakes the executive. Once the next block is ready, or without
+prefetch (the read runs on the executive's thread, which cannot see
+whether it would wait), block k drains at the take of block k +
+pipeline_depth + 1, so at most pipeline_depth + 1 blocks are in flight
+and their steps overlap on the device.
 
 Control mutations arrive through a thread-safe queue and are applied
 between blocks as writes into the bank's params; each copies the new
@@ -56,11 +60,6 @@ from pysdr_tpu_torch.runtime.ringbuffer import RingBuffer
 
 # the stages stage_ms sums over the drained blocks
 SUMMED_STAGES = tuple(s for s, _, _, _, summed in BLOCK_STAGES if summed)
-# how often the executive, its next block not yet ready, looks at the
-# oldest block's copy events and at the prefetch queue: a step and its
-# copies take about half a millisecond on an H100 (a host whose timer
-# is coarser sleeps longer: about 1.1 ms on the H100's host)
-IDLE_POLL_S = 1e-4
 
 
 def staging(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -178,6 +177,15 @@ class Executive:
         # held by the prefetch thread while it issues a block to the card,
         # and by stop(): after stop() the thread issues nothing more
         self._issue_lock = threading.Lock()
+        # the copy waiter (started at the first block dispatched with
+        # prefetch) and its feed: each block's copy events and the list
+        # it stamps once they are done, in dispatch order
+        self._waiter: threading.Thread | None = None
+        self._watch_q: queue.SimpleQueue = queue.SimpleQueue()
+        # what the executive waits on while its next block is not ready;
+        # notified by the copy waiter's stamps, the prefetch thread's puts
+        # and stop()
+        self._wake = threading.Condition()
         self.n_blocks = 0
         # block ids: the next the source's read gets (the reading thread's)
         # and the next the executive takes (its own)
@@ -296,9 +304,11 @@ class Executive:
             while not self._stop.is_set():
                 try:
                     self._pf_q.put(item, timeout=0.2)
-                    break
                 except queue.Full:
                     continue
+                with self._wake:
+                    self._wake.notify()
+                break
             if item is None:
                 return                         # stream end / error
 
@@ -341,15 +351,51 @@ class Executive:
             raise err
         return item
 
-    def _copies_first(self, events) -> bool:
-        """Wait for a block's copy events (True) or for an item in the
-        prefetch queue, its next block or the stream's end (False),
-        whichever comes first; both are polled every IDLE_POLL_S."""
-        while self._pf_q.empty():
-            if all(ev.query() for ev in events):
-                return True
-            time.sleep(IDLE_POLL_S)
-        return False
+    def _watch(self, events) -> list:
+        """Hand a dispatched block's copy events to the copy waiter,
+        started at the first call (not after stop()); returns the list it
+        appends its perf_counter_ns stamp to once they are done."""
+        if self._waiter is None:
+            with self._wake:
+                if self._waiter is None and not self._stop.is_set():
+                    self._waiter = threading.Thread(target=self._copy_loop,
+                                                    daemon=True)
+                    self._waiter.start()
+        seen: list = []
+        self._watch_q.put((events, seen))
+        return seen
+
+    def _copy_loop(self):
+        """The copy waiter: synchronise each fed block's copy events (the
+        GIL is released inside), then stamp the block and notify the
+        executive. None ends it; so does a synchronize that raises, after
+        its block's stamp: that block's drain waits on the same events
+        and raises it on the executive's thread."""
+        while (item := self._watch_q.get()) is not None:
+            events, seen = item
+            try:
+                for ev in events:
+                    ev.synchronize()
+            finally:
+                with self._wake:
+                    seen.append(time.perf_counter_ns())
+                    self._wake.notify()
+
+    def _copies_first(self, seen: list) -> int | None:
+        """Wait until the copy waiter has stamped `seen` (the oldest
+        block's copies are done) or the prefetch queue holds an item (the
+        next block, or the stream's end), whichever comes first, or
+        stop(); each of them notifies `_wake` once it has happened, and
+        nothing else ends the wait. Returns the block's `copies_seen`
+        mark where its copies came first: the waiter's stamp, or this
+        call's start where the stamp is older; else None."""
+        t0 = time.perf_counter_ns()
+        with self._wake:
+            while self._pf_q.empty() and not self._stop.is_set():
+                if seen:
+                    return max(seen[0], t0)
+                self._wake.wait()
+        return None
 
     # ---- the hot loop ----
 
@@ -371,10 +417,16 @@ class Executive:
         block_budget = d.in_block / d.fs_in
         next_deadline = None
 
-        def finish(entry, span, released_by=None, idle=False):
+        def finish(block, released_by=None, copies_seen=None):
+            # block: a pending (entry, span, seen); released_by: the id of
+            # the block whose take started this drain; copies_seen: the
+            # idle wait's mark (an idle drain), else the drain's start
             nonlocal next_deadline
+            entry, span, _ = block
             span.released_by = released_by
             span.drain0 = time.perf_counter_ns()
+            span.copies_seen = span.drain0 if copies_seen is None \
+                else copies_seen
             # waits for this block's host copies alone
             audio, self.drained_bb = drain(self.bank, entry, span)
             (_, self.drained_bb_host, self.drained_bb_ready), _ = entry
@@ -390,7 +442,7 @@ class Executive:
                     self.psd_callback(self, audio)
             # the block's account, once it is delivered: it delays no delivery
             ms = span.stages_ms()
-            ms["idle_drain"] = idle
+            ms["idle_drain"] = copies_seen is not None
             ms["wire_native"] = self._wire_pass is not None
             for k in self.stage_ms:
                 self.stage_ms[k] += ms[k]
@@ -432,29 +484,33 @@ class Executive:
                         if bb is not None:
                             bb = self.bank.baseband_from_wire(bb)
                         # the host copies start now, behind this step only
-                        pending.append(((start_host_copy(
-                            audio_w, bb if self.host_bb else None), bb),
-                            span))
+                        copies = start_host_copy(
+                            audio_w, bb if self.host_bb else None)
+                        seen = self._watch(copies[2]) if self.prefetch \
+                            else None
+                        pending.append(((copies, bb), span, seen))
                     span.dispatch1 = time.perf_counter_ns()
                     # while the next block is not here (the prefetch
                     # queue holds neither it nor the stream's end), drain
                     # the oldest blocks in flight as their copies finish,
                     # not at a take pipeline_depth + 1 blocks later
-                    while pending and self.prefetch and \
-                            self._copies_first(pending[0][0][0][2]):
-                        finish(*pending.popleft(), idle=True)
+                    while pending and self.prefetch:
+                        mark = self._copies_first(pending[0][2])
+                        if mark is None:
+                            break
+                        finish(pending.popleft(), copies_seen=mark)
                     # read the next block only if it will be dispatched
                     item = self._read_block() \
                         if wants_more(len(pending)) else None
                     if len(pending) > self.pipeline_depth:
                         # the next block was ready: block k-D,
                         # released by this take
-                        finish(*pending.popleft(),
+                        finish(pending.popleft(),
                                item[2].id if item is not None else None)
                 if item is not None and not wants_more(len(pending)):
                     self._held, item = item, None            # deadline hit
             while pending:
-                finish(*pending.popleft())
+                finish(pending.popleft())
             return self.profiler
         finally:
             self._pf_active.clear()
@@ -466,14 +522,21 @@ class Executive:
         So another bank's capture may start at once (any other thread's
         device call fails one), and a process that exits finds no thread
         of the executive inside a device copy (it would abort in the
-        interpreter's shutdown). Then wait (2 s at most) for the thread
-        to leave."""
-        self._stop.set()
+        interpreter's shutdown). Then wait (2 s at most each) for the
+        prefetch thread to leave and for the copy waiter to finish the
+        blocks fed to it and leave."""
+        with self._wake:
+            self._stop.set()
+            self._wake.notify()
+            w = self._waiter
         with self._issue_lock:
             pass
         t = self._pf_thread
         if t is not None and t is not threading.current_thread():
             t.join(timeout=2.0)
+        if w is not None and w.is_alive():
+            self._watch_q.put(None)
+            w.join(timeout=2.0)
 
     def run_in_thread(self, **kw) -> threading.Thread:
         t = threading.Thread(target=self.run, kwargs=kw, daemon=True)

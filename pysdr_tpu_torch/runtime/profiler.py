@@ -31,41 +31,46 @@ from torch.autograd import profiler as _autograd_profiler
 # perf_counter_ns marks of a block's life, in order: read0 (the source
 # read begins), arrival (it returned), quantized, issued (pin+issue
 # done), taken (the executive got it), dispatch0/dispatch1 (around the
-# step's issue and its host copies' start), drain0, waited (its copies'
-# events synchronised), decoded (audio_from_wire done), pushed (ring
-# pushes and writers done, before the per-block callback)
+# step's issue and its host copies' start), copies_seen (in a block
+# drained while the executive waited for its next block: when the copy
+# waiter had seen its copies done and the executive was waiting; else
+# drain0), drain0, waited (its copies' events synchronised), decoded
+# (audio_from_wire done), pushed (ring pushes and writers done, before
+# the per-block callback)
 BLOCK_MARKS = ("read0", "arrival", "quantized", "issued", "taken",
-               "dispatch0", "dispatch1", "drain0", "waited", "decoded",
-               "pushed")
+               "dispatch0", "dispatch1", "copies_seen", "drain0", "waited",
+               "decoded", "pushed")
 # a block's stages: (stage, from mark, to mark, tiles, summed). The tiling
-# stages run one mark to the next from arrival to pushed; read, upload
-# and drain span others. The executive's stage_ms sums the summed ones
-# over its drained blocks. quantize is the staging tensor's allocation
-# (pinned on a card) and the wire codes' write into it, pin+issue the
-# host->device copy's issue. control is the take to the dispatch: the
-# control commands, the raw writer and, where this take released one,
-# the released block's drain, push and per-block callback (psd_callback,
-# the App's display and RTTY taps; with realtime, the pacing sleep); hold
-# is the wait of a dispatched block for its drain. While the executive's
-# next block is not ready (the prefetch queue empty, as in a live
-# stream), a block drains as soon as the executive's poll finds its
-# copies done (its hold is that wait, its callback runs in the
-# executive's idle time); once the next block is ready, or without
-# prefetch, the take of block id + pipeline_depth + 1 starts it
+# stages run one mark to the next from arrival to pushed; read, upload,
+# wake and drain span others. The executive's stage_ms sums the summed
+# ones over its drained blocks. quantize is the staging tensor's
+# allocation (pinned on a card) and the wire codes' write into it,
+# pin+issue the host->device copy's issue. control is the take to the
+# dispatch: the control commands, the raw writer and, where this take
+# released one, the released block's drain, push and per-block callback
+# (psd_callback, the App's display and RTTY taps; with realtime, the
+# pacing sleep); hold is the wait of a dispatched block for its drain.
+# While the executive's next block is not ready (the prefetch queue
+# empty, as in a live stream), a block drains as soon as the copy waiter
+# has seen its copies done and woken the executive (its hold is that
+# wait, wake the part after the copies were seen, its callback runs in
+# the executive's idle time); once the next block is ready, or without
+# prefetch, the take of block id + pipeline_depth + 1 starts it (wake 0)
 BLOCK_STAGES = (
-    # stage        from         to           tiles  summed
-    ("read",       "read0",     "arrival",   False, True),
-    ("quantize",   "arrival",   "quantized", True,  True),
-    ("pin+issue",  "quantized", "issued",    True,  True),
-    ("upload",     "arrival",   "issued",    False, True),
-    ("handoff",    "issued",    "taken",     True,  True),
-    ("control",    "taken",     "dispatch0", True,  False),
-    ("dispatch",   "dispatch0", "dispatch1", True,  True),
-    ("hold",       "dispatch1", "drain0",    True,  True),
-    ("drain_wait", "drain0",    "waited",    True,  True),
-    ("decode",     "waited",    "decoded",   True,  True),
-    ("drain",      "drain0",    "decoded",   False, True),
-    ("push",       "decoded",   "pushed",    True,  False))
+    # stage        from           to           tiles  summed
+    ("read",       "read0",       "arrival",   False, True),
+    ("quantize",   "arrival",     "quantized", True,  True),
+    ("pin+issue",  "quantized",   "issued",    True,  True),
+    ("upload",     "arrival",     "issued",    False, True),
+    ("handoff",    "issued",      "taken",     True,  True),
+    ("control",    "taken",       "dispatch0", True,  False),
+    ("dispatch",   "dispatch0",   "dispatch1", True,  True),
+    ("hold",       "dispatch1",   "drain0",    True,  True),
+    ("wake",       "copies_seen", "drain0",    False, True),
+    ("drain_wait", "drain0",      "waited",    True,  True),
+    ("decode",     "waited",      "decoded",   True,  True),
+    ("drain",      "drain0",      "decoded",   False, True),
+    ("push",       "decoded",     "pushed",    True,  False))
 
 
 class BlockSpan:

@@ -30,7 +30,7 @@ CFG = PipelineConfig(fs_in=512e3, fs_out=48e3, out_block=1024,
                          ReceiverConfig(fc_hz=10.02e6, mode=Mode.USB)))
 # the keys of stage_ms, which the benchmark's readers read by name
 STAGE_MS_KEYS = {"read", "upload", "quantize", "pin+issue", "dispatch",
-                 "drain", "handoff", "hold", "drain_wait", "decode",
+                 "drain", "handoff", "hold", "wake", "drain_wait", "decode",
                  "idle_drain", "wire_native"}
 
 
@@ -60,6 +60,8 @@ def test_live_blocks_carry_records_that_tile_them(monkeypatch, depth,
     """A live-paced run to the stream's end: every delivered block has a
     record whose id is its delivery order and the source's read order;
     its marks are in order and its tiling stages tile arrival..pushed;
+    its wake is drain0 - copies_seen, within its hold, and 0 where a take
+    released its drain;
     stage_ms has the same keys on every wire, with the native pass or
     without (the library unavailable), each of its stages is the sum over
     the records, upload is quantize + pin+issue and drain is drain_wait +
@@ -91,6 +93,10 @@ def test_live_blocks_carry_records_that_tile_them(monkeypatch, depth,
                  if tiling]
         assert sum(tiles) == pytest.approx(
             (s.pushed - s.arrival) / 1e6, abs=1e-6)
+        assert st["wake"] == (s.drain0 - s.copies_seen) / 1e6
+        assert st["wake"] <= st["hold"]
+        if s.released_by is not None:
+            assert st["wake"] == 0.0, s.id
         if prefetch:
             assert s.released_by is None, s.id
             if s.id + 1 < n:
