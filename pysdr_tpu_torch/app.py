@@ -771,12 +771,12 @@ class App:
     def _on_block(self, ex, audio):
         """Per-block taps: memmon, the aux path, the baseband recorder, the
         display (AF panes every block the decimation keeps, the RF pane
-        every --psd-every blocks, the BB panes), and the RTTY decoder fed
-        the RX's baseband as the device tensor the executive carried with
-        this block, with the events after which it is valid and the
-        block's id (the record the executive drained last). The
-        baseband's host copy, which the executive started right after the
-        step, feeds the recorder and the BB panes."""
+        every --psd-every blocks, the BB panes) and the RTTY decoder,
+        each given the block's id (the record the executive drained
+        last), the decoder fed the RX's baseband as the device tensor the
+        executive carried with this block, with the events after which it
+        is valid. The baseband's host copy, which the executive started
+        right after the step, feeds the recorder and the BB panes."""
         if self.memmon is not None and ex.n_blocks % 32 == 0:
             self.memmon.take_snapshot()
         if self.aux_sink is not None:
@@ -794,16 +794,17 @@ class App:
         if self.bb_writer is not None and bb_host is not None:
             # interleave channel-last like the demod writer
             self.bb_writer.save_data(bb_host.T)
+        # the drained block's id keys the display's and the decoder's
+        # profiler ranges
+        block_id = ex.block_spans[-1].id if ex.block_spans else None
         if disp is not None:
-            disp(ex, audio)
+            disp(ex, audio, block_id)
             if ex.last_rf_block is not None \
                     and ex.n_blocks % self.args.psd_every == 0:
                 disp.update_rf(ex.last_rf_block)
             if need_bb_display:
                 disp.update_bb(bb_host)
         if self.rtty is not None and bb is not None:
-            # the drained block's id keys the decoder's profiler ranges
-            block_id = ex.block_spans[-1].id if ex.block_spans else None
             lines = []
             for i, txt in enumerate(self.rtty.decode_block(
                     bb[self.rtty_rx], ready=ex.drained_bb_ready,

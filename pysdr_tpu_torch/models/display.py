@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import struct
+import time
 import zlib
 from typing import NamedTuple
 
@@ -25,6 +26,7 @@ import torch
 from pysdr_tpu_torch.device import resolve_device
 from pysdr_tpu_torch.models import graphstep
 from pysdr_tpu_torch.ops import spectrum
+from pysdr_tpu_torch.runtime.profiler import stage_range
 
 
 # --------------------------------------------------------------------------
@@ -215,6 +217,8 @@ class ThreeBox:
             if on_card else None
         self._blocks: dict[int, _Block] = {}
         self._bound = self._tensors()
+        # ms the updates spent waiting on their pull (out_done), summed
+        self.wait_ms = 0.0
 
     def _pan_slice(self) -> tuple[int, int]:
         """Displayed bin range: Up keeps [fc, fc+fs/2), Down keeps
@@ -351,7 +355,9 @@ class ThreeBox:
                     self._body(blk)
                 blk.host_out.copy_(blk.out, non_blocking=True)
                 blk.out_done.record()
+            t0 = time.perf_counter()
             blk.out_done.synchronize()
+            self.wait_ms += 1e3 * (time.perf_counter() - t0)
         h = blk.host
         pidx = h["pidx"].copy()
         pval = h["pval"].copy()
@@ -453,12 +459,21 @@ def write_png(path: str, rgb: np.ndarray):
 # Display engine: the UpdatePSD loop
 # --------------------------------------------------------------------------
 
+# the display's domains: the RF pane, the AF panes, the BB panes
+DOMAINS = ("rf", "af", "bb")
+
+
 class DisplayEngine:
     """Owns one ThreeBox per domain (RF + per-channel AF/BB) on the bank's
     device, consumes blocks from the executive's PSD tap, and rate-limits
     updates to every `decimate`-th block. On a card its panes share one
     CUDA stream of their own (`stream`), and `prepare` captures each
-    pane's graph (graph=False: the panes run eagerly)."""
+    pane's graph (graph=False: the panes run eagerly).
+
+    Each domain's updates of a block run under the profiler range
+    `pysdr.display_<domain>#<block_id>` (the id the block's __call__
+    gave, which its update_rf and update_bb reuse), are timed into
+    `stage_ms` and counted, a frame a pane, in `counters`."""
 
     def __init__(self, bank, rf_cfg: DisplayConfig | None = None,
                  af_cfg: DisplayConfig | None = None, decimate: int = 1,
@@ -495,6 +510,28 @@ class DisplayEngine:
                    for i in range(n_af)] if show_baseband else []
         self.frames: dict[str, DisplayFrame] = {}
         self._n = 0
+        self.block_id = None
+        self._domain_ms = dict.fromkeys(DOMAINS, 0.0)
+        # the frames made, by domain
+        self.counters = dict.fromkeys(DOMAINS, 0)
+
+    @property
+    def stage_ms(self) -> dict:
+        """Cumulative ms on the host's clock: each domain's updates
+        ("rf", "af", "bb"), summed over its panes, from the first pane's
+        copy in to the last pane's frame; and "wait", the part of all of
+        them that the panes spent waiting on their pull."""
+        return {**self._domain_ms,
+                "wait": sum(b.wait_ms for b in self.panes)}
+
+    def _update(self, domain: str, boxes, blocks) -> None:
+        """Update each of `boxes` with its block, as one timed domain."""
+        t0 = time.perf_counter()
+        with stage_range(f"display_{domain}", self.block_id):
+            for box, x in zip(boxes, blocks):
+                self.frames[box.tag] = box.update(x)
+        self._domain_ms[domain] += 1e3 * (time.perf_counter() - t0)
+        self.counters[domain] += len(boxes)
 
     @property
     def panes(self) -> list[ThreeBox]:
@@ -522,13 +559,15 @@ class DisplayEngine:
         than that had no AF frame)."""
         return (n - 1) % self.decimate == 0
 
-    def __call__(self, executive, audio):
-        """Executive psd_callback: audio is host complex64 (n_rx, n)."""
+    def __call__(self, executive, audio, block_id=None):
+        """Executive psd_callback: audio is host complex64 (n_rx, n);
+        block_id names the block in the profiler's ranges, this call's
+        and those of the update_rf and update_bb that follow it."""
         self._n += 1
+        self.block_id = block_id
         if not self._keeps(self._n):
             return
-        for i, box in enumerate(self.af):
-            self.frames[box.tag] = box.update(audio[i])
+        self._update("af", self.af, audio)
 
     def wants_next_bb(self) -> bool:
         """True when the next __call__/update_bb pair will consume a
@@ -540,13 +579,11 @@ class DisplayEngine:
         (n_rx, out_block), on the AF update's decimation phase."""
         if not self.bb or not self._keeps(self._n):
             return
-        for i, box in enumerate(self.bb):
-            self.frames[box.tag] = box.update(bb[i])
+        self._update("bb", self.bb, bb)
 
     def update_rf(self, x_block) -> DisplayFrame:
-        fr = self.rf.update(x_block)
-        self.frames["RF"] = fr
-        return fr
+        self._update("rf", (self.rf,), (x_block,))
+        return self.frames["RF"]
 
     def retune(self, fc_hz: float):
         self.rf.retune(fc_hz)

@@ -1,0 +1,13 @@
+"""display_rf_ms (ms, program counter): the display's "rf" stage, the RF
+pane's update: its block's copy into pinned memory, the upload, the
+graph's replay, the pull and the wait for it, on the host's clock,
+summed over the measured window's blocks by the pan chain's tap
+(display_rf_ms, from DisplayEngine.stage_ms), a block (the blocks the
+executive's run drained). None where the run has no such counter."""
+
+
+def read(run):
+    key = "display_rf_ms"
+    if not run.blocks_run or key not in run.tap_counters:
+        return None
+    return run.tap_counters[key] / run.blocks_run
